@@ -3,7 +3,7 @@
 ``ModelConfig`` (with ``reduced()``), ``TierConfig``, ``HFLConfig`` (the
 per-tier ``tiers`` API) and ``parse_tiers_spec``, field for field. The
 legacy scalar ``HFLConfig`` keywords and read shims are not carried over;
-``SimConfig`` waits for the simulator slice.
+``SimConfig`` is not ported yet.
 """
 from __future__ import annotations
 

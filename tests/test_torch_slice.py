@@ -1,4 +1,4 @@
-"""The slice end to end: reduced olmo-1b at ``2x2:H=2`` for 6 steps (3
+"""The training path end to end: reduced olmo-1b at ``2x2:H=2`` for 6 steps (3
 syncs), the same converted init and the same ``SyntheticLM`` batches
 through the reference's ``run_hfl`` and the port's.
 
