@@ -11,14 +11,17 @@ nonzero):
   2. hold every kernel against its plain PyTorch version on the card,
      bitwise, on edge cases and at the main path's shapes (one JSON line
      per check), and time kernel and plain version there;
-  3. fused selection on a [2, Q] matrix: ``select_topk_rows`` (the
-     ``block_select`` pipeline) against the exact stable sort, timed
+  3. fused selection on a gaussian [2, Q] matrix: ``select_topk_rows``
+     (the ``block_select`` pipeline, which must answer it without the
+     exact fallback) against the exact stable sort, timed
      beside ``torch.topk`` as the library yardstick;
   4. the main path: full-width olmo-1b through ``repro_torch.launch.train``
      at ``--full --tiers 2x2:H=2 --sync sparse --batch-per-mu 4 --seq 128``
      for 4 steps (2 syncs), once with ``--omega-impl fused`` and once with
      ``--omega-impl pallas``; launch counts are zeroed just before and read
-     just after each run;
+     just after each run, and the fused run says how many of its
+     selections the ``block_select`` candidates answered and how many the
+     exact fallback answered;
   5. one JSON line listing every ported kernel with its launches on the
      main path, error, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -243,6 +246,9 @@ def main(argv):
     vals, idx = fops.select_topk_rows(S, k_ul)
     torch.cuda.synchronize()
     took_kernel_path = fops.select_topk_rows.fallbacks == fb0
+    if not took_kernel_path:
+        raise AssertionError("select_topk_rows: the gaussian matrix took the "
+                             "exact fallback, not the block_select candidates")
     ev, ei = fops._exact_sort_rows(S, k_ul)
     same(torch, [idx, vals], [ei, ev], "select_topk_rows vs exact stable sort")
     del vals, idx, ev, ei
@@ -297,7 +303,7 @@ def main(argv):
 
         free(torch)
         torch.cuda.reset_peak_memory_stats()
-        fb0 = fops.select_topk_rows.fallbacks
+        fin0, fb0 = fops.select_topk_rows.finished, fops.select_topk_rows.fallbacks
         for fn in counters.values():
             fn.launches = 0
         args = train.parse_args(MAIN_ARGV + ["--omega-impl", impl])
@@ -309,6 +315,10 @@ def main(argv):
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
+        # which selections the block_select candidates answered, and which
+        # the exact fallback answered after the kernel ran
+        finished = fops.select_topk_rows.finished - fin0
+        fallbacks = fops.select_topk_rows.fallbacks - fb0
         emit({"phase": "main_path", "impl": impl, "arch": cfg.name,
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "tiers": MAIN_ARGV[2], "steps": STEPS, "syncs": syncs,
@@ -317,7 +327,8 @@ def main(argv):
               "first_step_s": out["timing"]["compile_s"],
               "sync_ms": [1e3 * s for s in out["sync_s"]],
               "max_memory_allocated_gb": peak / 1e9, "launches": launches,
-              "fused_fallbacks": fops.select_topk_rows.fallbacks - fb0,
+              "fused_selections": {"kernel_pipeline": finished,
+                                   "exact_fallback": fallbacks},
               "rows_identical_after_sync": identical})
         want = (N_CLUSTERS + 1) * syncs
         for name in path_kernels[impl]:
@@ -330,6 +341,15 @@ def main(argv):
         if not (math.isfinite(out["eval_loss"])
                 and all(math.isfinite(l) for l in out["hist"])):
             raise AssertionError(f"{impl}: non-finite loss")
+        if impl == "fused":
+            calls = finished + fallbacks
+            if calls != 2 * syncs:
+                raise AssertionError(f"fused: {calls} selections, "
+                                     f"want {2 * syncs}")
+            print(f"fused: block_select launched {launches['block_select']} "
+                  f"times; {finished} of {calls} selections were answered "
+                  f"from its candidates, {fallbacks} by the exact fallback "
+                  f"(share {fallbacks / calls:.2f})", flush=True)
         del out
 
     # ---- 5. kernel summary --------------------------------------------------

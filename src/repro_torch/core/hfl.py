@@ -113,15 +113,10 @@ def make_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
 # ---------------------------------------------------------------------------
 
 
-def _wire_round(x, fmt: str):
-    """What the receiver reconstructs under ``HFLConfig.wire_format``; on a
-    1-D payload the single-row case of ``_wire_round_rows``."""
-    return _wire_round_rows(x, fmt)
-
-
 def _wire_round_rows(x, fmt: str):
-    """Row-batched wire rounding: bf16 round-to-nearest-even, or q8 with
-    scale = max|x|/127 over the LAST axis (``torch.round`` is
+    """What the receiver reconstructs under ``HFLConfig.wire_format``, row
+    by row (a 1-D payload is one row): bf16 round-to-nearest-even, or q8
+    with scale = max|x|/127 over the LAST axis (``torch.round`` is
     half-to-even, like ``jnp.round``)."""
     if fmt == "bf16":
         return x.to(torch.bfloat16).float()
@@ -208,14 +203,14 @@ def _make_flat_local_sync(hfl_cfg, wire):
         for n in range(N):
             vals, idx = sp.pack_phi(s[n], tier.phi_up, impl=impl)
             if wire:
-                vals = _wire_round(vals, wire)
+                vals = _wire_round_rows(vals, wire)
             _scatter_rows(acc, s[n:n + 1], idx.long()[None], vals[None])
         # MBS side: consensus + discounted error + Ω downlink
         _consensus_delta(e, acc, N, tier.beta_down)
         del acc
         dvals, didx = sp.pack_phi(e, tier.phi_down, impl=impl)
         if wire:
-            dvals = _wire_round(dvals, wire)
+            dvals = _wire_round_rows(dvals, wire)
         didx = didx.long()
         wref.index_add_(0, didx, dvals)  # new w_ref = w_ref + d
         e.index_add_(0, didx, -dvals)    # new e = δ - d
@@ -251,7 +246,7 @@ def _make_flat_fused_local_sync(hfl_cfg, wire):
                                             sp.keep_count(Q, tier.phi_down))
         dvals, didx = dvals[0], didx[0].long()
         if wire:
-            dvals = _wire_round(dvals, wire)
+            dvals = _wire_round_rows(dvals, wire)
         wref.index_add_(0, didx, dvals)
         e.index_add_(0, didx, -dvals)
         return _unpack_ref_outputs(state, wref, e, s, ref_spec, eps_spec)
@@ -295,12 +290,6 @@ class SyncPlan:
     param_specs: Any = None
     layout: Optional[str] = None
     collect_stats: bool = False
-
-    @classmethod
-    def from_config(cls, hfl_cfg, *, mesh=None, param_specs=None,
-                    layout=None, collect_stats: bool = False) -> "SyncPlan":
-        return cls(hfl=hfl_cfg, mesh=mesh, param_specs=param_specs,
-                   layout=layout, collect_stats=collect_stats)
 
 
 def make_sync(plan: SyncPlan):

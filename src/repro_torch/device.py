@@ -15,6 +15,6 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (CLI: --device cpu) to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):  # meta: shapes only
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

@@ -32,9 +32,8 @@ def block_select(x, th, cap_blk: int, n: int):
     _build.require(x.is_contiguous(), "block_select: x must be contiguous")
     _build.require(1 <= cap_blk <= BLOCK_ELEMS,
                    f"block_select: cap_blk must be in [1, {BLOCK_ELEMS}]")
-    if not torch.is_tensor(th):
-        th = torch.tensor([th], dtype=torch.float32, device=x.device)
-    _build.require(th.dtype == torch.float32 and th.numel() == 1,
+    _build.require(torch.is_tensor(th) and th.dtype == torch.float32
+                   and th.numel() == 1,
                    "block_select: th must be a one-element float32 tensor")
     _build.require(th.device == x.device,
                    "block_select: th must lie on x's device")

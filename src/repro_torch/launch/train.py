@@ -11,8 +11,9 @@ streams and ``first-loss/last-loss/eval-loss`` trailer as the reference:
       --tiers 2x2:H=2 --sync sparse --omega-impl fused --steps 4
 
 The simulator (``--scenario`` and its flags), observability
-(``--obs-*``, ``--trace-viz``, ``--metrics-out``) and checkpoints are not
-ported yet and raise.
+(``--obs-*``, ``--trace-viz``, ``--metrics-out``), measured payload
+accounting with its ``--codec`` and checkpoints are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -136,6 +137,9 @@ def run(args, *, on_sync=None) -> dict:
     if args.payload_accounting != "analytic":
         raise SystemExit("--payload-accounting measured is not ported yet "
                          "(ROADMAP Queue 1 item 11)")
+    if args.codec != "delta-varint":  # read only by measured accounting
+        raise SystemExit(f"--codec {args.codec} is not ported yet "
+                         "(ROADMAP Queue 1 item 11)")
     dev = resolve(args.device)
     if dev.type == "cuda":  # model math in bf16/f32; never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -156,8 +160,7 @@ def run(args, *, on_sync=None) -> dict:
             f"{args.clusters or 4}x{args.mus or 2}:H={args.period or 4}")
     hfl = HFLConfig(tiers=tiers, sync_mode=args.sync,
                     omega_impl=args.omega_impl, sync_layout=args.sync_layout,
-                    flat_shards=args.flat_shards, codec=args.codec,
-                    wire_format=args.wire_format)
+                    flat_shards=args.flat_shards, wire_format=args.wire_format)
     N = hfl.num_clusters
     print(f"[train] arch={cfg.name} clusters={N} "
           f"mus/cluster={hfl.mus_per_cluster} H={hfl.tiers[1].period} "
@@ -173,7 +176,7 @@ def run(args, *, on_sync=None) -> dict:
     state = hfl_init(params, opt, hfl)
     del params
     train_step = make_cluster_train_step(make_loss_fn(cfg), opt, sched)
-    sync_step = make_sync(SyncPlan.from_config(hfl))
+    sync_step = make_sync(SyncPlan(hfl))
 
     sync_s = []
 

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from repro_torch.device import resolve
 from repro_torch.models.common import (
     apply_rope, default_scale, dense_init, rope_angles, torch_dtype,
 )
@@ -36,7 +37,8 @@ def causal_attention(q, k, v, *, window=0):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def init_gqa(gen, cfg, lead=(), device="cpu"):
+def init_gqa(gen, cfg, lead=(), device=None):
+    device = resolve(device)
     d, H, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = torch_dtype(cfg.dtype)
     lead = tuple(lead)

@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
@@ -37,7 +39,8 @@ def default_scale(d_in: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def init_norm(cfg, d, lead=(), device="cpu"):
+def init_norm(cfg, d, lead=(), device=None):
+    device = resolve(device)
     shape = tuple(lead)
     if cfg.norm_type == "rmsnorm":
         return {"scale": torch.ones(shape + (d,), device=device)}

@@ -3,10 +3,12 @@ from __future__ import annotations
 
 import math
 
+from repro_torch.device import resolve
 from repro_torch.models.common import act_fn, default_scale, dense_init, torch_dtype
 
 
-def init_mlp(gen, cfg, lead=(), device="cpu"):
+def init_mlp(gen, cfg, lead=(), device=None):
+    device = resolve(device)
     d, f = cfg.d_model, cfg.d_ff
     dt = torch_dtype(cfg.dtype)
     lead = tuple(lead)

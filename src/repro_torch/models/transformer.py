@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (
     apply_norm, dense_init, init_norm, torch_dtype,
@@ -36,9 +37,11 @@ def padded_vocab(cfg) -> int:
     return -(-cfg.vocab_size // 512) * 512
 
 
-def init_model(gen: torch.Generator, cfg, device="cpu"):
-    """Random params from ``gen`` in the reference's tree layout."""
+def init_model(gen: torch.Generator, cfg, device=None):
+    """Random params from ``gen`` in the reference's tree layout, on the
+    card unless ``device`` names another (``device.resolve``)."""
     _check_dense(cfg)
+    device = resolve(device)
     dt = torch_dtype(cfg.dtype)
     L = (cfg.num_layers,)
     params = {"embed": dense_init(gen, (padded_vocab(cfg), cfg.d_model), dt,

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -53,21 +54,32 @@ def test_cli_runs_on_cpu_when_asked():
 def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the card-less path")
+    from repro_torch.configs import get_config
     from repro_torch.device import resolve
     from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.utils.convert import params_from_numpy
 
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve()
     with pytest.raises(RuntimeError, match="CUDA"):
         train.run(train.parse_args(["--steps", "1"]))  # --device defaults to cuda
+    cfg = get_config("olmo-1b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"w": np.zeros((2, 2), np.float32)})
     assert resolve("cpu").type == "cpu"
+    params = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
 
 
 def test_unported_flags_raise():
     from repro_torch.launch import train
 
     for argv in (["--scenario", "paper-fig3"], ["--obs-health"],
-                 ["--trace-viz", "x.json"]):
+                 ["--trace-viz", "x.json"], ["--codec", "bitmap"],
+                 ["--payload-accounting", "measured"]):
         with pytest.raises(SystemExit, match="not ported"):
             train.run(train.parse_args(argv + ["--device", "cpu"]))
 
@@ -76,10 +88,13 @@ def test_kernel_wrappers_check_their_operands():
     from repro_torch.kernels.dgc import kernel as DK
     from repro_torch.kernels.fused_sync import kernel as FK
 
+    th = torch.tensor([0.5])
     with pytest.raises(ValueError):
-        FK.block_select(torch.zeros(10, dtype=torch.float64), 0.5, 8, 10)
+        FK.block_select(torch.zeros(10, dtype=torch.float64), th, 8, 10)
     with pytest.raises(ValueError):
-        FK.block_select(torch.zeros(10), 0.5, 0, 10)
+        FK.block_select(torch.zeros(10), th, 0, 10)
+    with pytest.raises(ValueError):  # th is a tensor on x's device, not a float
+        FK.block_select(torch.zeros(10), 0.5, 8, 10)
     bad = torch.zeros(100, 1024)  # rows not a multiple of 256
     with pytest.raises(ValueError):
         DK.update_max(bad, bad, bad, 0.5)

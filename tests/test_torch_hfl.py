@@ -79,7 +79,7 @@ def _sync_both(hfl, jstate, tstate):
         (t.fanout, t.period, t.phi_up, t.phi_down, t.beta_up, t.beta_down)
         for t in hfl.tiers), sync_mode=hfl.sync_mode, omega_impl=hfl.omega_impl,
         wire_format=hfl.wire_format)
-    tsync = thfl.make_sync(thfl.SyncPlan.from_config(tcfg))
+    tsync = thfl.make_sync(thfl.SyncPlan(tcfg))
     return jsync(jstate), tsync(tstate)
 
 
@@ -154,4 +154,4 @@ def test_unported_plans_raise_with_their_roadmap_item():
                {"flat_shards": 2}):
         cfg = THFLConfig(**({"tiers": _tiers(2)} | kw))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            thfl.make_sync(thfl.SyncPlan.from_config(cfg))
+            thfl.make_sync(thfl.SyncPlan(cfg))

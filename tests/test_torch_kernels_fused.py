@@ -29,6 +29,10 @@ def _pallas_block_select(x_np, th, cap_blk, n):
     return np.asarray(v), np.asarray(i), np.asarray(c)
 
 
+def _th(v):
+    return torch.tensor([v], dtype=torch.float32)
+
+
 @pytest.mark.parametrize("n", [BE, 3 * BE - 777])
 @pytest.mark.parametrize("padded_input", [True, False])
 def test_block_select_plain_vs_pallas(n, padded_input):
@@ -37,7 +41,7 @@ def test_block_select_plain_vs_pallas(n, padded_input):
     # the port reads past-the-end positions as zeros: the unpadded vector
     # gives the reference's padded-tile answer (pad index n, not x.size)
     xin = np.pad(x, (0, (-n) % BE)) if padded_input else x
-    tv, ti, tc = TK.block_select(torch.from_numpy(xin), 1.5, 4096, n)
+    tv, ti, tc = TK.block_select(torch.from_numpy(xin), _th(1.5), 4096, n)
     np.testing.assert_array_equal(tv.numpy(), v)
     np.testing.assert_array_equal(ti.numpy(), i)
     np.testing.assert_array_equal(tc.numpy(), c)
@@ -46,7 +50,7 @@ def test_block_select_plain_vs_pallas(n, padded_input):
 def test_block_select_truncates_at_capacity():
     x = np.ones(BE, np.float32)
     v, i, c = _pallas_block_select(x, 0.5, 128, BE)
-    tv, ti, tc = TK.block_select(torch.from_numpy(x), 0.5, 128, BE)
+    tv, ti, tc = TK.block_select(torch.from_numpy(x), _th(0.5), 128, BE)
     assert int(tc[0, 0]) == BE
     np.testing.assert_array_equal(ti.numpy(), i)
     np.testing.assert_array_equal(ti[0].numpy(), np.arange(128, dtype=np.int32))
@@ -57,7 +61,7 @@ def test_block_select_all_zero_and_tiny_threshold():
     x = np.zeros(2 * BE - 5, np.float32)
     tiny = float(np.finfo(np.float32).tiny)
     v, i, c = _pallas_block_select(x, tiny, 64, x.size)
-    tv, ti, tc = TK.block_select(torch.from_numpy(x), tiny, 64, x.size)
+    tv, ti, tc = TK.block_select(torch.from_numpy(x), _th(tiny), 64, x.size)
     for a, b in ((tv, v), (ti, i), (tc, c)):
         np.testing.assert_array_equal(a.numpy(), b)
     assert int(tc.sum()) == 0 and (ti.numpy() == x.size).all()
@@ -113,8 +117,22 @@ def test_select_topk_rows_edge_cases(interpret):
 def test_block_branch_takes_the_kernel_path_without_fallback():
     S = np.random.default_rng(4).standard_normal((2, 3 * BE + 11)).astype(np.float32)
     before = tops.select_topk_rows.fallbacks
+    finished = tops.select_topk_rows.finished
     _check_rows(S, S.shape[1] // 10, False)
     assert tops.select_topk_rows.fallbacks == before
+    assert tops.select_topk_rows.finished == finished + 1
+
+
+def test_block_branch_counts_the_exact_fallback():
+    """Fewer than k nonzeros (a drift where most parameters did not move):
+    the candidates cannot answer, the exact fallback does, and is counted."""
+    S = np.zeros((2, 3 * BE), np.float32)
+    S[:, ::97] = np.random.default_rng(6).standard_normal((2, S[0, ::97].size))
+    before = tops.select_topk_rows.fallbacks
+    finished = tops.select_topk_rows.finished
+    _check_rows(S, S.shape[1] // 10, False)
+    assert tops.select_topk_rows.fallbacks == before + 1
+    assert tops.select_topk_rows.finished == finished
 
 
 @pytest.mark.parametrize("phi", [0.9, 0.99])

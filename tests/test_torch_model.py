@@ -79,7 +79,7 @@ def test_forward_logits_match_reference(cfg):
 
 def test_init_model_layout_matches_reference():
     jp = j_init(jax.random.PRNGKey(0), OLMO)
-    tp = t_init(torch.Generator().manual_seed(0), _t_cfg(OLMO))
+    tp = t_init(torch.Generator().manual_seed(0), _t_cfg(OLMO), device="cpu")
     jl, jdef = jax.tree_util.tree_flatten_with_path(jp)
     for (path, a), b in zip(jl, tree_leaves(tp)):
         assert tuple(a.shape) == tuple(b.shape), path
