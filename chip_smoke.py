@@ -9,8 +9,18 @@ nonzero):
   1. print the card's name and power limit; build the CUDA kernels from
      ``src/repro_torch/csrc`` and print the build seconds;
   2. hold every kernel against its plain PyTorch version on the card,
-     bitwise, on edge cases and at the main path's shapes (one JSON line
-     per check), and time kernel and plain version there;
+     bitwise, on edge cases and at the paths' shapes (one JSON line per
+     check), and time kernel and plain version there; ``apply_mask`` is
+     compared as bit patterns (signs of zeros included), and
+     ``omega_pallas``/``dgc_step_pallas`` on the card against the same
+     functions on CPU copies at one row of the faithful path's Q; so is
+     the fused Ω there (``sparsify.omega(impl="fused")``), with
+     ``block_select`` against its plain version at that row's own tile
+     capacity and threshold, on a real full-width ResNet-18 gradient
+     (more candidates than the buffer holds), randn**3 (heavy-tailed, the
+     candidates answer) and a gaussian scaled up along the row (the
+     total fits, the last tiles overflow); the branch the kernel's tile
+     counts decide must be the one the card's selection took;
   3. fused selection on a gaussian [2, Q] matrix: ``select_topk_rows``
      (the ``block_select`` pipeline, which must answer it without the
      exact fallback) against the exact stable sort, timed
@@ -22,16 +32,26 @@ nonzero):
      just after each run, and the fused run says how many of its
      selections the ``block_select`` candidates answered and how many the
      exact fallback answered;
-  5. one JSON line listing every ported kernel with its launches on the
-     main path, error, times and bound.
+  5. the paper-exact path: full-width ResNet-18 under ``FaithfulHFL``
+     through ``repro_torch.launch.paper_accuracy.run`` at the paper's
+     geometry (7 clusters x 4 MUs, H = 4, φ = (0.99, 0.9, 0.9, 0.9),
+     β_s = 0.5, β_m = 0.2, σ = 0.9), batch 64 per MU, lr 0.05, 8 steps
+     (2 syncs), once with ``--omega-impl pallas`` and once with ``fused``;
+     every Ω row is one launch, (K + N)·S + (2N + 1)·⌊S/H⌋ = 310 of each
+     kernel of the impl, counts zeroed just before each run; after every
+     step every row of u and v must hold >= k zeros; the fused run says
+     which selections the ``block_select`` candidates answered, by hop;
+  6. one JSON line listing every ported kernel with its launches on each
+     path (and their sum), error, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
-result. ``--profile DIR`` runs phase 4 under ``torch.profiler`` and writes
-the device time by kernel to ``DIR/profile_{fused,pallas}.txt``, with the
-device-busy share of the wall time (its timings then include the
-profiler's overhead).
+result. ``--profile DIR`` runs phases 4 and 5 under ``torch.profiler`` and
+writes the device time by kernel to ``DIR/profile_{fused,pallas}.txt`` and
+``DIR/profile_faithful_{pallas,fused}.txt``, with the device-busy share of
+the wall time (its timings then include the profiler's overhead).
 """
 import gc
+import itertools
 import json
 import math
 import os
@@ -47,6 +67,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 N_CLUSTERS, STEPS, PERIOD = 2, 4, 2
+F_STEPS, F_LR = 8, 0.05  # the paper-exact path: 2 syncs, the example's lr
 MAIN_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
              "--log-every", "1", "--device", "cuda"]
@@ -78,13 +99,38 @@ def cuda_ms(torch, fn, reps):
 def same(torch, got, want, what):
     """Fail unless the kernel's outputs equal the plain version's bitwise
     (NaN-free data; -0.0 == 0.0); returns the max abs difference, 0.0."""
-    err = 0.0
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
             raise AssertionError(f"{what}: kernel and plain version differ")
-        if g.numel():
-            err = max(err, float((g.double() - w.double()).abs().max()))
-    return err
+    return 0.0
+
+
+def same_bits(torch, got, want, what):
+    """Fail unless the 4-byte outputs are equal as bit patterns (-0.0 and
+    NaN payloads included); returns the max abs difference, 0.0."""
+    for g, w in zip(got, want):
+        if (g.shape != w.shape or g.dtype != w.dtype
+                or not torch.equal(g.view(torch.int32), w.view(torch.int32))):
+            raise AssertionError(f"{what}: kernel and plain version differ")
+    return 0.0
+
+
+def split_by_hop(outcomes, steps, n_mus, n_clusters, period):
+    """Per hop, how many fused selections the candidates answered and how
+    many the exact fallback did. A faithful step selects in a fixed order:
+    one row per MU (uplink), one per cluster (SBS downlink) and, on a sync
+    step, 2N + 1 more (N SBS uplinks, the MBS, N downlinks)."""
+    hops = {h: {"kernel_pipeline": 0, "exact_fallback": 0}
+            for h in ("mu_ul", "sbs_dl", "sync")}
+    it = iter(outcomes)
+    for t in range(steps):
+        groups = [("mu_ul", n_mus), ("sbs_dl", n_clusters)]
+        if (t + 1) % period == 0:
+            groups.append(("sync", 2 * n_clusters + 1))
+        for hop, n in groups:
+            for ok in itertools.islice(it, n):
+                hops[hop]["kernel_pipeline" if ok else "exact_fallback"] += 1
+    return hops
 
 
 def free(torch):
@@ -132,12 +178,17 @@ def main(argv):
         return 2
     try:
         from repro_torch.configs import get_config
+        from repro_torch.configs.resnet18_cifar import CONFIG as PAPER
         from repro_torch.core import sparsify as sp
+        from repro_torch.data import SyntheticImages
         from repro_torch.kernels import _build
         from repro_torch.kernels.dgc import kernel as DK
+        from repro_torch.kernels.dgc import ops as dops
         from repro_torch.kernels.fused_sync import kernel as FK
         from repro_torch.kernels.fused_sync import ops as fops
+        from repro_torch.launch import paper_accuracy as pa
         from repro_torch.launch import train
+        from repro_torch.models.resnet import init_resnet18
         from repro_torch.models.transformer import init_model
         from repro_torch.utils import flatten as fl
         from repro_torch.utils.tree import tree_leaves
@@ -163,6 +214,11 @@ def main(argv):
     Q = spec.total
     k_ul = sp.keep_count(Q, 0.9)
     emit({"phase": "sizes", "arch": cfg.name, "Q": Q, "k": k_ul})
+    # the faithful path's sizes: full-width ResNet-18, shapes only
+    Qf = fl.spec_of(init_resnet18(None, width=PAPER.width, device="meta")[0]).total
+    kf = sp.keep_count(Qf, PAPER.hfl.tiers[0].phi_up)  # the MU uplink's k
+    emit({"phase": "sizes", "arch": "resnet18-cifar", "width": PAPER.width,
+          "Q": Qf, "k": kf})
     gen = torch.Generator(device=dev).manual_seed(0)
     rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     kernels = {}
@@ -240,6 +296,106 @@ def main(argv):
         check_tail_hist(n, main_shape)
         free(torch)
 
+    # apply_mask at the faithful path's shape (Qf padded to whole tiles),
+    # with a threshold from the real update_max -> tail_hist passes
+    rows_f = -(-Qf // (256 * 1024)) * 256
+    v = rand(rows_f, 1024)
+    u = rand(rows_f, 1024)
+    th = dops.threshold_pallas(v, 0.99)
+    v_odd = v.clone()  # signs of zeros and NaNs
+    v_odd[0, :6] = torch.tensor([float("nan"), -0.0, 0.0, -3.0, -1e-3,
+                                 float("nan")], device=dev)
+    edge = [("tail_hist threshold", u, v, th),
+            ("th = 0", u, v_odd, torch.zeros((), device=dev)),
+            ("above every |v|", u, v, v.abs().max() * 2),
+            ("negatives", u, -v.abs(), th),
+            ("zero u, as on the path", torch.zeros_like(v), v, th)]
+    for name, uu, vv, tt in edge:
+        got = DK.apply_mask(uu, vv, tt)
+        torch.cuda.synchronize()
+        err = same_bits(torch, got, DK.apply_mask_plain(uu, vv, tt),
+                        f"apply_mask[{name}]")
+        emit({"check": "apply_mask", "case": name, "rows": rows_f,
+              "bit_patterns_equal": True, "max_abs_err": err,
+              "kept": int((vv.abs() >= tt).sum())})
+    del got, v_odd, edge
+    zero = torch.zeros_like(v)
+    ms = cuda_ms(torch, lambda: DK.apply_mask(zero, v, th), 20)
+    plain_ms = cuda_ms(torch, lambda: DK.apply_mask_plain(zero, v, th), 3)
+    P = rows_f * 1024
+    # read u (the zero buffer, a distinct operand) and v, write three outputs
+    b, by = bound_ms(20 * P + 4, 3 * P)
+    kernels["apply_mask"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b,
+                                 bound_by=by, library_ms=None,
+                                 max_abs_err=err, elements=P)
+    del u, v, zero, th
+    free(torch)
+
+    # the whole DGC glue on the card against the same functions on CPU copies
+    x = rand(Qf)
+    got = dops.omega_pallas(x, 0.99)
+    torch.cuda.synchronize()
+    want = dops.omega_pallas(x.cpu(), 0.99)
+    same_bits(torch, [got[0].cpu()], [want[0]], "omega_pallas")
+    same(torch, [got[1].cpu()], [want[1]], "omega_pallas mask")
+    emit({"check": "omega_pallas", "n": Qf, "phi": 0.99, "bit_patterns_equal": True,
+          "kept": int(want[1].sum()), "k": kf})
+    ug, vg, gg = x, rand(Qf), rand(Qf)
+    got = dops.dgc_step_pallas(ug, vg, gg, 0.9, 0.99)
+    torch.cuda.synchronize()
+    want = dops.dgc_step_pallas(ug.cpu(), vg.cpu(), gg.cpu(), 0.9, 0.99)
+    same_bits(torch, [t.cpu() for t in got], want, "dgc_step_pallas")
+    emit({"check": "dgc_step_pallas", "n": Qf, "sigma": 0.9, "phi": 0.99,
+          "bit_patterns_equal": True, "zeros_in_v": int((want[2] == 0).sum())})
+    del x, ug, vg, gg, got, want
+    free(torch)
+
+    # the fused Ω at one row of the faithful path: block_select with that
+    # row's own tile capacity and threshold estimate against its plain
+    # version, and the whole selection on the card against a CPU copy
+    # (which takes the exact stable sort); the branch the kernel's tile
+    # counts decide must be the one the card's selection took
+    w0, loss_fn, _ = pa.build(width=PAPER.width, seed=0, device=dev)
+    xb, yb = SyntheticImages(seed=3).sample(PAPER.batch_per_mu)
+    leaf = w0.detach().requires_grad_(True)
+    batch = (torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev))
+    (grad,) = torch.autograd.grad(loss_fn(leaf, batch), leaf)  # the MU row at step 1
+    del w0, leaf, loss_fn, batch
+    phi_f = PAPER.hfl.tiers[0].phi_up
+    sel = fops.select_topk_rows
+    cap_f = fops.candidate_capacity(Qf, kf)
+    cap_blk_f = fops.tile_capacity(Qf, cap_f)
+    ramp = torch.arange(Qf, device=dev, dtype=torch.float32) / Qf
+    for name, x in (("resnet gradient", grad), ("randn**3", rand(Qf) ** 3),
+                    ("skewed tiles", rand(Qf) * torch.exp(4 * ramp))):
+        th = fops._row_threshold(x[None], kf, bins=fops._BINS,
+                                 sample=fops._SAMPLE, margin=fops._MARGIN)
+        got = FK.block_select(x, th, cap_blk_f, Qf)
+        torch.cuda.synchronize()
+        same_bits(torch, got, FK.block_select_plain(x, th, cap_blk_f, Qf),
+                  f"block_select[faithful {name}]")
+        m = int(got[2].sum())
+        overflowed = int((got[2][:, 0] > cap_blk_f).sum())
+        answers = kf <= m <= cap_f and not overflowed
+        n0 = len(sel.outcomes)
+        sent, mask = sp.omega(x, phi_f, impl="fused")
+        torch.cuda.synchronize()
+        if sel.outcomes[n0:] != [answers]:
+            raise AssertionError(f"omega fused[{name}]: took {sel.outcomes[n0:]}, "
+                                 f"the tile counts decide {answers}")
+        want_sent, want_mask = sp.omega(x.cpu(), phi_f, impl="fused")
+        same_bits(torch, [sent.cpu()], [want_sent], f"omega fused[{name}]")
+        same(torch, [mask.cpu()], [want_mask], f"omega fused[{name}] mask")
+        emit({"check": "omega_fused", "case": name, "n": Qf, "phi": phi_f,
+              "k": kf, "capacity": cap_f, "cap_blk": cap_blk_f, "th": float(th),
+              "candidates": m, "tiles_overflowed": overflowed,
+              "tiles": got[2].shape[0], "answered_by": (
+                  "candidates" if answers else "exact fallback"),
+              "block_select_bit_patterns_equal": True,
+              "card_equals_cpu_bit_patterns": True})
+    del grad, ramp, x, th, got, sent, mask, want_sent, want_mask
+    free(torch)
+
     # ---- 3. fused selection on [2, Q] -------------------------------------
     S = rand(N_CLUSTERS, Q)
     fb0 = fops.select_topk_rows.fallbacks
@@ -265,11 +421,10 @@ def main(argv):
           "ms": sel_ms, "exact_sort_ms": exact_ms, "library_ms": topk_ms,
           "library": "torch.topk(|S|, k, dim=1)"})
     # block_select alone at the main path's per-row shape and threshold
-    cap = fops.candidate_capacity(Q, k_ul)
-    th = fops._row_threshold(S, k_ul, bins=128, sample=16384, margin=2)
+    cap_blk = fops.tile_capacity(Q, fops.candidate_capacity(Q, k_ul))
+    th = fops._row_threshold(S, k_ul, bins=fops._BINS, sample=fops._SAMPLE,
+                             margin=fops._MARGIN)
     nb = -(-Q // BE)
-    per = -(-cap // nb)
-    cap_blk = min(BE, per + per // 4 + 64)
     row = S[0]
     got = FK.block_select(row, th[0:1], cap_blk, Q)
     torch.cuda.synchronize()
@@ -290,8 +445,9 @@ def main(argv):
 
     # ---- 4. the main path ---------------------------------------------------
     counters = {"block_select": FK.block_select, "update_max": DK.update_max,
-                "tail_hist": DK.tail_hist}
+                "tail_hist": DK.tail_hist, "apply_mask": DK.apply_mask}
     path_kernels = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
+    by_path = {}  # path -> {kernel: launches in that path's run}
     syncs = STEPS // PERIOD
     for impl in ("fused", "pallas"):
         identical = []
@@ -335,7 +491,7 @@ def main(argv):
             if launches[name] != want:
                 raise AssertionError(f"{impl}: {name} launched {launches[name]} "
                                      f"times, want {want}")
-            kernels[name]["launches"] = launches[name]
+        by_path[f"olmo-1b {impl}"] = launches
         if not (len(identical) == syncs and all(identical)):
             raise AssertionError(f"{impl}: cluster rows differ after a sync")
         if not (math.isfinite(out["eval_loss"])
@@ -352,7 +508,68 @@ def main(argv):
                   f"(share {fallbacks / calls:.2f})", flush=True)
         del out
 
-    # ---- 5. kernel summary --------------------------------------------------
+    # ---- 5. the paper-exact path --------------------------------------------
+    hfl_f = PAPER.hfl  # 7 clusters x 4 MUs, H = 4, the paper's φ, β and σ
+    K_f, N_f, period = hfl_f.total_mus, hfl_f.num_clusters, hfl_f.tiers[1].period
+    f_syncs = F_STEPS // period
+    want_f = (K_f + N_f) * F_STEPS + (2 * N_f + 1) * f_syncs
+    f_kernels = {"pallas": ("update_max", "tail_hist", "apply_mask"),
+                 "fused": ("block_select",)}
+    for impl in ("pallas", "fused"):
+        min_zeros = []
+
+        def on_step(t, sim, metrics):
+            min_zeros.append(min(int((sim.state[b] == 0).sum(dim=1).min())
+                                 for b in ("u", "v")))
+
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        n0 = len(sel.outcomes)
+        run = lambda: pa.run(f"faithful {impl}", hfl_f, F_STEPS,
+                             batch_per_mu=PAPER.batch_per_mu, lr=F_LR, seed=0,
+                             width=PAPER.width, device="cuda",
+                             omega_impl=impl, on_step=on_step)
+        if profile_dir is not None:
+            out = profiled(torch, run, profile_dir / f"profile_faithful_{impl}.txt")
+        else:
+            out = run()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        by_path[f"faithful {impl}"] = launches
+        outcomes = sel.outcomes[n0:]
+        if len(outcomes) != (want_f if impl == "fused" else 0):
+            raise AssertionError(f"faithful {impl}: {len(outcomes)} fused "
+                                 f"selections, want {want_f} with fused only")
+        hops = split_by_hop(outcomes, F_STEPS, K_f, N_f, period)
+        emit({"phase": "faithful_path", "impl": impl, "arch": "resnet18-cifar",
+              "width": PAPER.width, "Q": Qf, "clusters": N_f,
+              "mus_per_cluster": hfl_f.mus_per_cluster, "period": period,
+              "batch_per_mu": PAPER.batch_per_mu, "lr": F_LR,
+              "steps": F_STEPS, "syncs": f_syncs, "losses": out["losses"],
+              "top1": out["acc"], "steady_s_per_step": out["steady_s_per_step"],
+              "first_step_s": out["first_step_s"], "step_s": out["step_s"],
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": launches, "min_zeros_per_row": min_zeros, "k": kf,
+              "fused_selections_by_hop": hops if impl == "fused" else None})
+        for name in f_kernels[impl]:
+            if launches[name] != want_f:
+                raise AssertionError(f"faithful {impl}: {name} launched "
+                                     f"{launches[name]} times, want {want_f}")
+        if len(min_zeros) != F_STEPS or min(min_zeros) < kf:
+            raise AssertionError(f"faithful {impl}: a u/v row holds fewer than "
+                                 f"k = {kf} zeros after a step: {min_zeros}")
+        if not (math.isfinite(out["acc"]) and all(math.isfinite(l) for l in out["losses"])):
+            raise AssertionError(f"faithful {impl}: non-finite loss or accuracy")
+        if impl == "fused":
+            print("faithful fused: selections answered from the block_select "
+                  "candidates / by the exact fallback, by hop: " + ", ".join(
+                      f"{h} {c['kernel_pipeline']}/{c['exact_fallback']}"
+                      for h, c in hops.items()), flush=True)
+        del out
+
+    # ---- 6. kernel summary --------------------------------------------------
     meta = {
         "block_select": ("src/repro_torch/csrc/fused_sync.cu",
                          "src/repro/kernels/fused_sync/kernel.py:67"),
@@ -360,12 +577,18 @@ def main(argv):
                        "src/repro/kernels/dgc/kernel.py:47"),
         "tail_hist": ("src/repro_torch/csrc/dgc.cu",
                       "src/repro/kernels/dgc/kernel.py:88"),
+        "apply_mask": ("src/repro_torch/csrc/dgc.cu",
+                       "src/repro/kernels/dgc/kernel.py:119"),
     }
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name]
+        per_path = {p: c[name] for p, c in by_path.items() if c[name]}
+        if not per_path:
+            raise AssertionError(f"{name} was launched on no path")
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": k["launches"],
+                     "replaces": replaces, "launches": sum(per_path.values()),
+                     "launches_by_path": per_path,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

@@ -1,7 +1,8 @@
 """Model-difference sparsification Ω (paper §IV; DGC, Lin et al. 2018).
 
-The port of ``repro.core.sparsify``'s payload functions. Every selection
-is bit-identical to the reference's, ties included: ``lax.top_k`` puts the
+The port of ``repro.core.sparsify``: the payload functions of the flat
+sync and the per-vector ``omega``/``dgc_step`` of the paper-exact engine.
+Every selection is bit-identical to the reference's, ties included: ``lax.top_k`` puts the
 lower index first among equal magnitudes, and ``torch.topk`` promises no
 tie order, so exact top-k here is ``stable_topk_positions`` — a radix
 select of the k-th largest |x| key followed by a stable sort of the k
@@ -9,7 +10,7 @@ winners, which returns exactly the first k of a stable descending argsort
 while sorting only k entries (the whole-vector sort of a full-size model
 would not fit beside its state).
 
-``impl`` of ``pack_phi``:
+``impl`` of ``pack_phi`` and ``omega``:
   * ``topk``   -- exact top-k (reference)
   * ``hist``   -- histogram threshold + O(Q) compaction
   * ``pallas`` -- threshold from the DGC kernels (``kernels/dgc``) +
@@ -21,6 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.utils.fp import fma_f32
 
 _TINY = float(np.finfo(np.float32).tiny)
 _CHUNK = 1 << 26  # elements per pass of the chunked scans below
@@ -117,10 +120,13 @@ def threshold_for_phi(x, phi: float, *, bins: int = 64):
 def mask_at_least_k(x, th, k: int):
     """Mask of ``|x| >= max(th, tiny)``, padded with the first positions to
     honour the ">= k kept" contract when fewer entries survive the floor.
-    The reference's ``jnp.where`` on the count is a host branch here."""
+    The reference's ``jnp.where`` on the count is a host branch here.
+    |x| is compared in f32 whatever x's dtype, as jnp promotes a bf16
+    array against the f32 threshold (torch would round the 0-d threshold
+    to bf16 instead)."""
     t = torch.clamp_min(torch.as_tensor(th, dtype=torch.float32,
                                         device=x.device), _TINY)
-    base = x.abs() >= t
+    base = x.abs().float() >= t
     if int(base.sum()) < k:
         base.reshape(-1)[:k] = True
     return base
@@ -129,6 +135,61 @@ def mask_at_least_k(x, th, k: int):
 def threshold_mask(x, phi: float, *, bins: int = 64):
     th = threshold_for_phi(x, phi, bins=bins)
     return mask_at_least_k(x, th, keep_count(x.numel(), phi))
+
+
+def topk_mask(x, k: int):
+    """Boolean mask of the k largest-|x| entries, ties to the lower index
+    (``lax.top_k``'s order). x any shape."""
+    flat = x.reshape(-1).float()
+    mask = torch.zeros(flat.shape, dtype=torch.bool, device=x.device)
+    mask[stable_topk_positions(flat, k)] = True
+    return mask.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Ω and the DGC step (the paper-exact engine's per-vector selections)
+# ---------------------------------------------------------------------------
+
+
+def omega(v, phi: float, *, impl: str = "topk"):
+    """Ω(V, φ): (sparse v, mask). φ <= 0 returns v itself and an all-True
+    mask. The reference's ``v * mask`` is, as XLA compiles it, a select:
+    masked-out entries are +0.0 whatever v's sign."""
+    if phi <= 0.0:
+        return v, torch.ones(v.shape, dtype=torch.bool, device=v.device)
+    if impl == "topk":
+        mask = topk_mask(v, keep_count(v.numel(), phi))
+    elif impl == "hist":
+        mask = threshold_mask(v, phi)
+    elif impl == "pallas":
+        from repro_torch.kernels.dgc import ops as _k
+
+        return _k.omega_pallas(v, phi)
+    elif impl == "fused":
+        from repro_torch.kernels.fused_sync import ops as _f
+
+        _, idx = _f.fused_pack_phi(v, phi)
+        mask = torch.zeros((v.numel(),), dtype=torch.bool, device=v.device)
+        mask[idx.long()] = True
+        mask = mask.reshape(v.shape)
+    else:
+        raise ValueError(impl)
+    return torch.where(mask, v, 0.0), mask
+
+
+def dgc_step(u, v, g, sigma: float, phi: float, *, impl: str = "topk"):
+    """One MU-side sparse-momentum step (Alg. 4 lines 6-12):
+
+        u <- σ·u + g   (one fused multiply-add, as XLA compiles it)
+        v <- v + u
+        ĝ  = Ω(v, φ);  u <- u ⊙ ¬mask;  v <- v ⊙ ¬mask
+
+    The masking products are selects, as XLA compiles them (+0.0 where
+    the mask holds). Returns (ĝ, u', v')."""
+    u = fma_f32(sigma, u, g).to(u.dtype)
+    v = v + u
+    ghat, mask = omega(v, phi, impl=impl)
+    return ghat, torch.where(mask, 0.0, u), torch.where(mask, 0.0, v)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-// update_max and tail_hist: the DGC threshold passes of the Omega selection.
+// update_max, tail_hist and apply_mask: the three DGC passes of the Omega
+// selection (threshold, then the masked apply).
 //
 // update_max replaces the TPU kernel
 // src/repro/kernels/dgc/kernel.py:update_max (body _update_max_kernel):
@@ -24,6 +25,19 @@
 // (lanes with equal j are merged by __match_any_sync, one atomic each), and
 // a suffix sum turns the histogram into tail counts. That replaces 64
 // compares per element with ~6.
+//
+// apply_mask replaces src/repro/kernels/dgc/kernel.py:apply_mask (body
+// _apply_kernel): mask = |v| >= th, g^ = v*mask, u'' = u*(1-mask),
+// v'' = v*(1-mask). Bound: device-memory bytes, 20 B per element (read u
+// and v, write three outputs). Design: a streaming elementwise pass, one
+// float4 load per operand and three float4 stores per thread, neighbouring
+// threads on neighbouring addresses. The signs of zeros and NaNs follow the
+// reference body as XLA compiles it: it rewrites v * convert(mask) into a
+// select, so g^ is v or +0.0 (a masked-out NaN or -0.0 gives +0.0), while
+// u*(1-mask) and v*(1-mask) stay f32 PRODUCTS (a masked-in negative entry
+// gives -0.0, a NaN stays NaN). th is read from device memory (a 0-d tensor
+// the threshold passes left there), so the caller never waits for it on
+// the host.
 #include <cuda_runtime.h>
 
 namespace {
@@ -136,6 +150,34 @@ __global__ void tile_order_sum_kernel(const int* __restrict__ tile_counts,
   counts[b] = acc;
 }
 
+__device__ __forceinline__ void mask_apply(float u, float v, float th,
+                                           float& g, float& uo, float& vo) {
+  const bool in = fabsf(v) >= th;  // false for NaN
+  const float keep = __fsub_rn(1.0f, in ? 1.0f : 0.0f);
+  g = in ? v : 0.0f;
+  uo = __fmul_rn(u, keep);
+  vo = __fmul_rn(v, keep);
+}
+
+__global__ void __launch_bounds__(256)
+apply_mask_kernel(const float4* __restrict__ u, const float4* __restrict__ v,
+                  const float* __restrict__ th, long long n4,
+                  float4* __restrict__ ghat, float4* __restrict__ uo,
+                  float4* __restrict__ vo) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float t = __ldg(th);
+  const float4 a = u[i], b = v[i];
+  float4 g, un, vn;
+  mask_apply(a.x, b.x, t, g.x, un.x, vn.x);
+  mask_apply(a.y, b.y, t, g.y, un.y, vn.y);
+  mask_apply(a.z, b.z, t, g.z, un.z, vn.z);
+  mask_apply(a.w, b.w, t, g.w, un.w, vn.w);
+  ghat[i] = g;
+  uo[i] = un;
+  vo[i] = vn;
+}
+
 }  // namespace
 
 extern "C" int rt_update_max(const float* u, const float* v, const float* g,
@@ -164,5 +206,20 @@ extern "C" int rt_tail_hist(const float* v, const float* edges, int bins,
   }
   tile_order_sum_kernel<<<(bins + 127) / 128, 128, 0, s>>>(tile_counts, nb,
                                                            bins, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_apply_mask(const float* u, const float* v, const float* th,
+                             long long rows, float* ghat, float* uo, float* vo,
+                             void* stream) {
+  const long long n4 = rows * 1024 / 4;
+  if (n4 > 0) {
+    const long long blocks = (n4 + 255) / 256;
+    apply_mask_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float4*>(u), reinterpret_cast<const float4*>(v),
+        th, n4, reinterpret_cast<float4*>(ghat), reinterpret_cast<float4*>(uo),
+        reinterpret_cast<float4*>(vo));
+  }
   return static_cast<int>(cudaGetLastError());
 }

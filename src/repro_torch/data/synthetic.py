@@ -1,8 +1,11 @@
-"""Synthetic LM data: a verbatim copy of ``repro.data.synthetic.SyntheticLM``.
+"""Synthetic data: verbatim copies of ``repro.data.synthetic``'s
+``SyntheticLM`` and ``SyntheticImages``.
 
-Kept in numpy so both packages draw identical token batches from the same
+Kept in numpy so both packages draw identical batches from the same
 seeds: ``SyntheticLM`` gives order-2 Markov token streams with per-stream
-structure, a next-token task a transformer can learn.
+structure, a next-token task a transformer can learn; ``SyntheticImages``
+gives CIFAR-shaped class-template images plus noise, the stand-in for
+CIFAR-10 in the ResNet-18 accuracy experiments.
 """
 from __future__ import annotations
 
@@ -33,3 +36,20 @@ class SyntheticLM:
             out[:, i] = nxt
             t2, t1 = t1, nxt
         return out
+
+
+class SyntheticImages:
+    """(x [N,32,32,3] float32, y [N] int) with class-dependent templates."""
+
+    def __init__(self, num_classes: int = 10, seed: int = 0, noise: float = 0.6):
+        rng = np.random.default_rng(seed)
+        self.templates = rng.normal(0, 1, (num_classes, 32, 32, 3)).astype(np.float32)
+        self.num_classes = num_classes
+        self.noise = noise
+        self.rng = rng
+
+    def sample(self, n: int, rng=None):
+        rng = rng or self.rng
+        y = rng.integers(0, self.num_classes, n)
+        x = self.templates[y] + rng.normal(0, self.noise, (n, 32, 32, 3)).astype(np.float32)
+        return x.astype(np.float32), y.astype(np.int32)

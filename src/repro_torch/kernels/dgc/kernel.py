@@ -1,14 +1,16 @@
-"""``update_max`` and ``tail_hist``: the DGC threshold passes (CUDA).
+"""``update_max``, ``tail_hist`` and ``apply_mask``: the DGC passes (CUDA).
 
-``update_max`` replaces the TPU kernel ``src/repro/kernels/dgc/kernel.py:
-update_max`` and ``tail_hist`` replaces ``...dgc/kernel.py:tail_hist``,
-both with ``csrc/dgc.cu``, whose head says what bounds each on the H100
-(device-memory bytes: 20 B and 4 B per element) and how the design keeps
-the outputs bitwise those of the plain versions below: σu + g as one
-fused multiply-add (what the reference kernel's compiled body computes)
-and v + u' as one rounded add in ``update_max``; exact per-tile int32
-counts added in tile order in f32 in ``tail_hist``, the TPU grid's own
-accumulation.
+``update_max``, ``tail_hist`` and ``apply_mask`` replace the TPU kernels
+of the same names in ``src/repro/kernels/dgc/kernel.py``, all with
+``csrc/dgc.cu``, whose head says what bounds each on the H100
+(device-memory bytes: 20 B, 4 B and 20 B per element) and how the design
+keeps the outputs bitwise those of the plain versions below: σu + g as
+one fused multiply-add (what the reference kernel's compiled body
+computes) and v + u' as one rounded add in ``update_max``; exact per-tile
+int32 counts added in tile order in f32 in ``tail_hist``, the TPU grid's
+own accumulation; in ``apply_mask``, ĝ as a select (v or +0.0: XLA
+rewrites the body's v·mask so) and u'', v'' as f32 products with 1 - mask
+(a masked-in negative entry gives -0.0).
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors. Operands are (rows, 1024) f32 tiles with
@@ -124,3 +126,41 @@ def tail_hist(v, edges):
 
 
 tail_hist.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# apply_mask
+# ---------------------------------------------------------------------------
+
+
+def apply_mask_plain(u, v, th):
+    """mask = |v| >= th -> (v·mask, u·(1 - mask), v·(1 - mask)) with the
+    reference body's signs as XLA compiles it: v·mask becomes a select
+    (masked-out entries, NaN and -0.0 included, give +0.0), the other two
+    stay f32 products with 1 - mask."""
+    mask = v.abs() >= th
+    keep = 1.0 - mask.float()
+    return torch.where(mask, v, 0.0), u * keep, v * keep
+
+
+def apply_mask(u, v, th):
+    """u, v [R, 1024] f32; th a 0-d (or one-element) f32 tensor on their
+    device, read there by the kernel -> (ĝ, u'', v''), each [R, 1024] f32."""
+    _check_tiles("apply_mask", u, v)
+    _build.require(torch.is_tensor(th) and th.dtype == torch.float32
+                   and th.numel() == 1,
+                   "apply_mask: th must be a one-element float32 tensor")
+    _build.require(th.device == u.device, "apply_mask: th must lie on u's device")
+    if u.device.type == "cpu":
+        return apply_mask_plain(u, v, th.reshape(()))
+    th = th.reshape(1).contiguous()
+    ghat, uo, vo = (torch.empty_like(v) for _ in range(3))
+    rc = _build.library().rt_apply_mask(
+        u.data_ptr(), v.data_ptr(), th.data_ptr(), u.shape[0],
+        ghat.data_ptr(), uo.data_ptr(), vo.data_ptr(), _build.stream_of(u))
+    _build.check(rc, "apply_mask")
+    apply_mask.launches += 1
+    return ghat, uo, vo
+
+
+apply_mask.launches = 0

@@ -41,6 +41,13 @@ def candidate_capacity(n: int, k: int) -> int:
     return int(min(n, k + k // 4 + max(n // 24, 128) + 2048))
 
 
+def tile_capacity(n: int, cap: int) -> int:
+    """Candidate slots per tile of ``BLOCK_ELEMS`` for a row of n entries
+    and a candidate capacity ``cap``: the even share plus a quarter and 64."""
+    per = -(-cap // -(-n // K.BLOCK_ELEMS))
+    return min(K.BLOCK_ELEMS, per + per // 4 + 64)
+
+
 def _row_threshold(S, k: int, *, bins: int, sample: int, margin: int):
     """|x| threshold per row of S [R, n] keeping >= k entries w.h.p.: tail
     counts of a strided sample against linear edges (the ``tail_hist``
@@ -81,9 +88,7 @@ def _compact_kernel(S, th, cap: int):
     no cross-tile offsets (pad slots lose to every real candidate). The
     tile capacity and the overflow predicate are the reference's."""
     R, n = S.shape
-    nb = -(-n // K.BLOCK_ELEMS)
-    per = -(-cap // nb)
-    cap_blk = min(K.BLOCK_ELEMS, per + per // 4 + 64)
+    cap_blk = tile_capacity(n, cap)
     vals_l, idx_l, m_l, of_l = [], [], [], []
     for r in range(R):
         v, i, c = K.block_select(S[r], th[r:r + 1], cap_blk, n)
@@ -150,6 +155,7 @@ def select_topk_rows(S, k: int, *, bins: int = _BINS, sample: int = _SAMPLE,
             v, i = _finish_topk(vals_c, idx_c, k)
             vals.append(v)
             idx.append(i)
+    select_topk_rows.outcomes.append(ok)
     if ok:
         select_topk_rows.finished += 1
         return torch.cat(vals), torch.cat(idx)
@@ -161,6 +167,7 @@ def select_topk_rows(S, k: int, *, bins: int = _BINS, sample: int = _SAMPLE,
 
 select_topk_rows.finished = 0   # calls answered from the candidates
 select_topk_rows.fallbacks = 0  # calls that took the exact fallback
+select_topk_rows.outcomes = []  # one bool per call, in order: candidates answered
 
 
 def fused_pack_phi(x, phi: float, *, interpret=None, **kw):

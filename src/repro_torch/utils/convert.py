@@ -3,8 +3,10 @@
 The reference's trees arrive as nested dicts of numpy arrays (bf16 as the
 2-byte ``bfloat16`` numpy dtype, read through a 16-bit view, so this
 module needs no bf16 numpy package). ``params_from_numpy`` gives the
-port's params, ``state_from_numpy`` a whole ``HFLState`` whose w_ref, eps
-and e are flat-backed like ``hfl_init``'s.
+port's params from any such tree (transformer params, or ResNet-18
+``params`` and ``bn_state``), ``state_from_numpy`` a whole ``HFLState``
+whose w_ref, eps and e are flat-backed like ``hfl_init``'s, and
+``faithful_state_from_numpy`` the state dict of ``FaithfulHFL``.
 """
 from __future__ import annotations
 
@@ -58,3 +60,16 @@ def state_from_numpy(state, device="cuda") -> HFLState:
         e=_flat_backed(conv(s["e"]), None),
         step=int(np.asarray(s["step"])),
     )
+
+
+FAITHFUL_KEYS = ("w_tilde_n", "u", "v", "e_n", "eps_n", "w_ref", "e")
+
+
+def faithful_state_from_numpy(state, device="cuda") -> dict:
+    """The reference ``FaithfulHFL.state`` (a dict of arrays) -> the port's:
+    the seven buffers as tensors on ``device`` and the step ``t`` as an
+    int."""
+    dev = resolve(device)
+    out = {k: tensor_from_numpy(state[k], dev) for k in FAITHFUL_KEYS}
+    out["t"] = int(np.asarray(state["t"]))
+    return out

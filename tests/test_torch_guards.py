@@ -1,6 +1,6 @@
 """Guards of the PyTorch port: it imports nothing of the JAX package, its
-CLI runs on the CPU when asked, and nothing falls back to the CPU when the
-card was asked for."""
+entry points (the training CLI, the paper-exact path) run on the CPU when
+asked, and nothing falls back to the CPU when the card was asked for."""
 import ast
 import shutil
 import subprocess
@@ -74,6 +74,40 @@ def test_cuda_entry_points_raise_without_a_card():
     assert params["embed"].device.type == "cpu"
 
 
+def test_paper_path_raises_without_a_card_and_runs_on_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the card-less path")
+    from repro_torch.launch import paper_accuracy as pa
+    from repro_torch.models.resnet import init_resnet18
+
+    hfl = pa.paper_hfl(2, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pa.run("x", hfl, 1)  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_resnet18(torch.Generator().manual_seed(0))
+    params, state = init_resnet18(torch.Generator().manual_seed(0), width=0.125,
+                                  device="cpu")
+    assert params["conv0"].device.type == state["bn0"]["mean"].device.type == "cpu"
+    out = pa.run("x", hfl, 2, batch_per_mu=2, width=0.125, device="cpu",
+                 omega_impl="pallas")
+    assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+    assert 0.0 <= out["acc"] <= 1.0
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_faithful_state_stays_on_w0_device(device):
+    from repro_torch.configs.base import HFLConfig
+    from repro_torch.core.federated import FaithfulHFL
+
+    sim = FaithfulHFL(w0=torch.zeros(64, device=device), grad_fn=lambda w, b: b,
+                      hfl_cfg=HFLConfig(tiers=((2, 1, 0.9, 0.9), (3, 2, 0.9, 0.9))),
+                      lr_schedule=lambda t: 0.1)
+    for key, t in sim.state.items():
+        if key != "t":
+            assert t.device.type == device, key
+    assert sim.state["u"].shape == (6, 64) and sim.state["w_tilde_n"].shape == (3, 64)
+
+
 def test_unported_flags_raise():
     from repro_torch.launch import train
 
@@ -101,6 +135,16 @@ def test_kernel_wrappers_check_their_operands():
     ok = torch.zeros(256, 1024)
     with pytest.raises(ValueError):
         DK.tail_hist(ok, torch.zeros(300))
+    th = torch.tensor(0.5)
+    with pytest.raises(ValueError):  # rows not a multiple of 256
+        DK.apply_mask(bad, bad, th)
+    with pytest.raises(ValueError):
+        DK.apply_mask(ok.double(), ok.double(), th)
+    with pytest.raises(ValueError):  # th is a tensor on u's device, not a float
+        DK.apply_mask(ok, ok, 0.5)
+    with pytest.raises(ValueError):
+        DK.apply_mask(ok, torch.zeros(512, 1024), th)
+    assert all(t.shape == ok.shape for t in DK.apply_mask(ok, ok, th))
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -135,6 +135,20 @@ def test_block_branch_counts_the_exact_fallback():
     assert tops.select_topk_rows.finished == finished
 
 
+def test_select_topk_rows_records_each_outcome_in_order():
+    """One entry per compacting call: True where the candidates answered,
+    False where the exact fallback did."""
+    dense = np.random.default_rng(4).standard_normal((1, 3 * BE)).astype(np.float32)
+    sparse = np.zeros((1, 3 * BE), np.float32)
+    sparse[0, ::97] = 1.0  # fewer than k nonzeros
+    k = 3 * BE // 10
+    sel = tops.select_topk_rows
+    n0 = len(sel.outcomes)
+    for S in (dense, sparse, dense):
+        sel(torch.from_numpy(S), k, interpret=False)
+    assert sel.outcomes[n0:] == [True, False, True]
+
+
 @pytest.mark.parametrize("phi", [0.9, 0.99])
 def test_fused_pack_phi_equals_reference(phi):
     x = np.random.default_rng(5).standard_normal(40000).astype(np.float32)
