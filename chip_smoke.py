@@ -21,6 +21,12 @@ nonzero):
      candidates answer) and a gaussian scaled up along the row (the
      total fits, the last tiles overflow); the branch the kernel's tile
      counts decide must be the one the card's selection took;
+     ``bitpack`` against its plain version (bytes and popcounts) on edge
+     cases (n = 5, a ragged two-block n, NaN/±0/±inf/subnormal entries,
+     all-zero and all-one masks) and at the comm path's and olmo-1b's
+     shapes; and ``block_select``, ``update_max``, ``tail_hist`` and
+     ``bitpack`` timed at one row of the faithful path's Q with the L2
+     cache flushed before every launch (the row fits in the 50 MB L2);
   3. fused selection on a gaussian [2, Q] matrix: ``select_topk_rows``
      (the ``block_select`` pipeline, which must answer it without the
      exact fallback) against the exact stable sort, timed
@@ -41,7 +47,22 @@ nonzero):
      kernel of the impl, counts zeroed just before each run; after every
      step every row of u and v must hold >= k zeros; the fused run says
      which selections the ``block_select`` candidates answered, by hop;
-  6. one JSON line listing every ported kernel with its launches on each
+     the pallas run keeps its state after step 7, the one before the
+     second sync;
+  6. the comm path on that state, as an ``HFLState`` over the ResNet-18
+     tree at 7 clusters (φ = 0.9 up and down, β_s = 0.5, β_m = 0.2):
+     ``comm.make_sync_probe`` for every registered codec with ``pallas``
+     and ``fused`` Ω; the pallas probe's 7 uplink and 1 downlink payloads
+     bit-equal to the same probe on a CPU copy, the state unchanged,
+     ``make_sync`` on a copy of the state sending each impl's probed
+     payloads (w_ref and eps bit for bit),
+     device bit counts equal to the host ``measure_bits``, the bitmap
+     streams through ``bitpack`` equal to numpy's and decoding back,
+     ``bitmap_payload`` of the downlink card = CPU, a ``PayloadLedger``
+     per codec beside the analytic 32·(1 - φ), ``bitpack`` launched once
+     per kernel-path encode and ``bitmap_payload`` call, and the
+     ``launch.comm_bits`` entry point on the card;
+  7. one JSON line listing every ported kernel with its launches on each
      path (and their sum), error, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
@@ -50,6 +71,7 @@ writes the device time by kernel to ``DIR/profile_{fused,pallas}.txt`` and
 ``DIR/profile_faithful_{pallas,fused}.txt``, with the device-busy share of
 the wall time (its timings then include the profiler's overhead).
 """
+import dataclasses
 import gc
 import itertools
 import json
@@ -94,6 +116,26 @@ def cuda_ms(torch, fn, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def cuda_ms_cold(torch, fn, reps, flush):
+    """Mean ms of ``fn`` with the L2 cache flushed (``flush`` rewritten,
+    128 MB) before every launch; only the launch lies between the events.
+    A spin of ~0.1 ms after the flush keeps the card busy while the host
+    enqueues the launch, so its host-side cost stays out of the time."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(200_000)  # clock cycles
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
 
 
 def same(torch, got, want, what):
@@ -177,15 +219,24 @@ def main(argv):
               "needs a CUDA card", file=sys.stderr)
         return 2
     try:
+        import numpy as np
+
+        from repro_torch.comm import accounting as acc
+        from repro_torch.comm import codecs as cod
         from repro_torch.configs import get_config
         from repro_torch.configs.resnet18_cifar import CONFIG as PAPER
         from repro_torch.core import sparsify as sp
+        from repro_torch.core import hfl as H
+        from repro_torch.core.hfl import HFLState
         from repro_torch.data import SyntheticImages
         from repro_torch.kernels import _build
+        from repro_torch.kernels.bitpack import kernel as BK
+        from repro_torch.kernels.bitpack import ops as bops
         from repro_torch.kernels.dgc import kernel as DK
         from repro_torch.kernels.dgc import ops as dops
         from repro_torch.kernels.fused_sync import kernel as FK
         from repro_torch.kernels.fused_sync import ops as fops
+        from repro_torch.launch import comm_bits
         from repro_torch.launch import paper_accuracy as pa
         from repro_torch.launch import train
         from repro_torch.models.resnet import init_resnet18
@@ -221,10 +272,19 @@ def main(argv):
           "Q": Qf, "k": kf})
     gen = torch.Generator(device=dev).manual_seed(0)
     rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    kernels = {}
+    kernels = {}  # kernel -> shape -> its check's error, times and bound
+    flush = torch.empty(32 << 20, device=dev)  # 128 MB: evicts the 50 MB L2
+
+    def timed(name, shape, ms, plain_ms, nbytes, nops, err, elements, **extra):
+        b, by = bound_ms(nbytes, nops)
+        kernels.setdefault(name, {})[shape] = entry = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+            max_abs_err=err, elements=elements, **extra)
+        emit({"timing": name, "shape": shape, **entry})
 
     # ---- 2. kernels vs plain versions -------------------------------------
     BE = FK.BLOCK_ELEMS
+    BE_BP = BK.BLOCK_ROWS * BK.BLOCK_COLS
     tiny = float(torch.finfo(torch.float32).tiny)
     cases = [("gaussian", rand(1 << 24), 1.5, 12000),
              ("ragged", rand(3 * BE - 777), 1.0, 24000),
@@ -242,10 +302,10 @@ def main(argv):
     del cases, x, got
     free(torch)
 
-    def check_update_max(n, main_shape):
+    def check_update_max(n, shape):
         rows = -(-n // (256 * 1024)) * 256
         v = rand(rows, 1024)
-        if main_shape:  # the main path calls it with u = g = 0, sigma = 0
+        if shape:  # both paths call it with u = g = 0, sigma = 0
             u = g = torch.zeros_like(v)
             sigma = 0.0
         else:
@@ -256,21 +316,21 @@ def main(argv):
                    f"update_max[{n}]")
         emit({"check": "update_max", "n": n, "rows": rows, "sigma": sigma,
               "bitwise_equal": True, "max_abs_err": err})
-        if not main_shape:
+        if not shape:
             return
         del got
-        ms = cuda_ms(torch, lambda: DK.update_max(u, v, g, sigma), 5)
+        fn = lambda: DK.update_max(u, v, g, sigma)
+        ms = (cuda_ms(torch, fn, 5) if shape == "olmo-1b"
+              else cuda_ms_cold(torch, fn, 20, flush))
         plain_ms = cuda_ms(torch, lambda: DK.update_max_plain(u, v, g, sigma), 1)
         P = rows * 1024
-        # each distinct input read once (the main path passes u and g as
-        # ONE zero buffer), u' and v' written once, 3 flops per element
+        # each distinct input read once (the paths pass u and g as ONE zero
+        # buffer), u' and v' written once, 3 flops per element
         n_in = len({t.data_ptr() for t in (u, v, g)})
-        b, by = bound_ms(4 * P * n_in + 8 * P + 4 * (rows // 256), 3 * P)
-        kernels["update_max"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b,
-                                     bound_by=by, library_ms=None,
-                                     max_abs_err=err, elements=P)
+        timed("update_max", shape, ms, plain_ms,
+              4 * P * n_in + 8 * P + 4 * (rows // 256), 3 * P, err, P)
 
-    def check_tail_hist(n, main_shape):
+    def check_tail_hist(n, shape):
         rows = -(-n // (256 * 1024)) * 256
         v = rand(rows, 1024)
         edges = sp.linear_edges(v.abs().max(), 64).clamp_min(tiny)
@@ -280,20 +340,19 @@ def main(argv):
         emit({"check": "tail_hist", "n": n, "rows": rows, "bins": 64,
               "bitwise_equal": True, "max_abs_err": err,
               "count_at_edge0": float(got[0])})
-        if not main_shape:
+        if not shape:
             return
-        ms = cuda_ms(torch, lambda: DK.tail_hist(v, edges), 5)
+        fn = lambda: DK.tail_hist(v, edges)
+        ms = (cuda_ms(torch, fn, 5) if shape == "olmo-1b"
+              else cuda_ms_cold(torch, fn, 20, flush))
         plain_ms = cuda_ms(torch, lambda: DK.tail_hist_plain(v, edges), 1)
         P = rows * 1024
-        b, by = bound_ms(4 * P + 8 * 64, 7 * P)
-        kernels["tail_hist"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b,
-                                    bound_by=by, library_ms=None,
-                                    max_abs_err=err, elements=P)
+        timed("tail_hist", shape, ms, plain_ms, 4 * P + 8 * 64, 7 * P, err, P)
 
-    for n, main_shape in (((1 << 24) + 12345, False), (Q, True)):
-        check_update_max(n, main_shape)
+    for n, shape in (((1 << 24) + 12345, None), (Q, "olmo-1b"), (Qf, "resnet18")):
+        check_update_max(n, shape)
         free(torch)
-        check_tail_hist(n, main_shape)
+        check_tail_hist(n, shape)
         free(torch)
 
     # apply_mask at the faithful path's shape (Qf padded to whole tiles),
@@ -324,10 +383,7 @@ def main(argv):
     plain_ms = cuda_ms(torch, lambda: DK.apply_mask_plain(zero, v, th), 3)
     P = rows_f * 1024
     # read u (the zero buffer, a distinct operand) and v, write three outputs
-    b, by = bound_ms(20 * P + 4, 3 * P)
-    kernels["apply_mask"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b,
-                                 bound_by=by, library_ms=None,
-                                 max_abs_err=err, elements=P)
+    timed("apply_mask", "resnet18", ms, plain_ms, 20 * P + 4, 3 * P, err, P)
     del u, v, zero, th
     free(torch)
 
@@ -393,8 +449,59 @@ def main(argv):
                   "candidates" if answers else "exact fallback"),
               "block_select_bit_patterns_equal": True,
               "card_equals_cpu_bit_patterns": True})
+        if name == "resnet gradient":  # the faithful path's row and data
+            ms = cuda_ms_cold(torch, lambda: FK.block_select(x, th, cap_blk_f, Qf),
+                              20, flush)
+            plain_ms = cuda_ms(torch, lambda: FK.block_select_plain(
+                x, th, cap_blk_f, Qf), 3)
+            nb_f = got[2].shape[0]
+            timed("block_select", "resnet18", ms, plain_ms,
+                  4 * Qf + 8 * nb_f * cap_blk_f + 4 * nb_f + 4, 2 * Qf, 0.0, Qf,
+                  cap_blk=cap_blk_f)
     del grad, ramp, x, th, got, sent, mask, want_sent, want_mask
     free(torch)
+
+    # bitpack against its plain version: edge cases, then the comm path's
+    # shape (ResNet-18's Q, 0/1 masks as the bitmap encode builds them) and
+    # olmo-1b's, where launch overhead does not hide the bound
+    def check_bitpack(name, flat):
+        tiles, n = bops._to_tiles(flat)
+        got = BK.bitpack(tiles)
+        torch.cuda.synchronize()
+        same(torch, got, BK.bitpack_plain(tiles), f"bitpack[{name}]")
+        line = {"check": "bitpack", "case": name, "n": n, "rows": tiles.shape[0],
+                "bitwise_equal": True, "set": int(got[1].sum())}
+        if n <= 1 << 20:  # the stream against numpy on the host
+            want = np.packbits(flat.cpu().numpy() != 0, bitorder="little").tobytes()
+            if bops.bitpack_bytes(flat) != want:
+                raise AssertionError(f"bitpack[{name}]: bytes differ from np.packbits")
+            line["equals_np_packbits"] = True
+        emit(line)
+        return tiles
+
+    odd = torch.tensor([float("nan"), -0.0, 0.0, float("inf"), -float("inf"),
+                        1e-45, -1e-40, -float("nan")], device=dev)
+    ragged = rand(BE_BP + 3) * (rand(BE_BP + 3) > 1.0)  # two blocks, ragged
+    ragged[torch.randperm(ragged.numel(), generator=gen, device=dev)[:4096]] = (
+        odd.repeat(512))
+    for name, flat in (("n = 5", odd[:5]), ("ragged two-block", ragged),
+                       ("all-zero", torch.zeros(262147, device=dev)),
+                       ("all-one", torch.ones(262147, device=dev))):
+        check_bitpack(name, flat)
+    del odd, ragged
+    for shape, n, reps in (("resnet18", Qf, 20), ("olmo-1b", Q, 5)):
+        tiles = check_bitpack(shape, (rand(n) > 1.2816).float())  # ≈ 10 % set
+        if shape == "olmo-1b":
+            ms = cuda_ms(torch, lambda: BK.bitpack(tiles), reps)
+        else:
+            ms = cuda_ms_cold(torch, lambda: BK.bitpack(tiles), reps, flush)
+        plain_ms = cuda_ms(torch, lambda: BK.bitpack_plain(tiles), 1)
+        P = tiles.numel()
+        # read the f32 mask once, write one bit per element and the counts
+        timed("bitpack", shape, ms, plain_ms, 4 * P + P // 8 + 4 * (P // BE_BP),
+              P, 0.0, P)
+        del tiles
+        free(torch)
 
     # ---- 3. fused selection on [2, Q] -------------------------------------
     S = rand(N_CLUSTERS, Q)
@@ -436,16 +543,15 @@ def main(argv):
     del got
     ms = cuda_ms(torch, lambda: FK.block_select(row, th[0:1], cap_blk, Q), 5)
     plain_ms = cuda_ms(torch, lambda: FK.block_select_plain(row, th[0:1], cap_blk, Q), 1)
-    b, by = bound_ms(4 * Q + 8 * nb * cap_blk + 4 * nb + 4, 2 * Q)
-    kernels["block_select"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b,
-                                   bound_by=by, library_ms=None, max_abs_err=err,
-                                   elements=Q, cap_blk=cap_blk)
+    timed("block_select", "olmo-1b", ms, plain_ms,
+          4 * Q + 8 * nb * cap_blk + 4 * nb + 4, 2 * Q, err, Q, cap_blk=cap_blk)
     del S, row, th
     free(torch)
 
     # ---- 4. the main path ---------------------------------------------------
     counters = {"block_select": FK.block_select, "update_max": DK.update_max,
-                "tail_hist": DK.tail_hist, "apply_mask": DK.apply_mask}
+                "tail_hist": DK.tail_hist, "apply_mask": DK.apply_mask,
+                "bitpack": BK.bitpack}
     path_kernels = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
     by_path = {}  # path -> {kernel: launches in that path's run}
     syncs = STEPS // PERIOD
@@ -515,12 +621,16 @@ def main(argv):
     want_f = (K_f + N_f) * F_STEPS + (2 * N_f + 1) * f_syncs
     f_kernels = {"pallas": ("update_max", "tail_hist", "apply_mask"),
                  "fused": ("block_select",)}
+    sync_state = {}  # the pallas run's SBS/MBS buffers before its second sync
     for impl in ("pallas", "fused"):
         min_zeros = []
 
         def on_step(t, sim, metrics):
             min_zeros.append(min(int((sim.state[b] == 0).sum(dim=1).min())
                                  for b in ("u", "v")))
+            if impl == "pallas" and t == F_STEPS - 2:
+                sync_state.update({b: sim.state[b].clone() for b in
+                                   ("w_tilde_n", "eps_n", "w_ref", "e")})
 
         free(torch)
         torch.cuda.reset_peak_memory_stats()
@@ -569,7 +679,171 @@ def main(argv):
                       for h, c in hops.items()), flush=True)
         del out
 
-    # ---- 6. kernel summary --------------------------------------------------
+    # ---- 6. the comm path on the faithful path's sync state ---------------
+    t6 = time.perf_counter()
+    free(torch)
+    spec_f = fl.spec_of(init_resnet18(None, width=PAPER.width, device="meta")[0])
+    if spec_f.total != Qf or set(sync_state) != {"w_tilde_n", "eps_n", "w_ref", "e"}:
+        raise AssertionError("comm: the faithful run left no sync state of Q")
+
+    def hfl_state(rows):  # SBS models / uplink errors, MBS model / error
+        return HFLState(params=fl.unpack_stacked(rows["w_tilde_n"], spec_f), opt={},
+                        w_ref=fl.unpack(rows["w_ref"], spec_f),
+                        eps=fl.unpack_stacked(rows["eps_n"], spec_f),
+                        e=fl.unpack(rows["e"], spec_f), step=F_STEPS - 1)
+
+    rows_d = {b: t.clone() for b, t in sync_state.items()}
+    state_d = hfl_state(rows_d)
+    comm_cfg = {impl: dataclasses.replace(hfl_f, omega_impl=impl)
+                for impl in ("pallas", "fused")}
+    names = list(cod.CODECS)
+    cheap = [n for n in names if n.startswith(("dense", "bitmap"))]
+    for fn in counters.values():
+        fn.launches = 0
+    probe_bits, payloads = {}, {}
+    for impl, cfg_i in comm_cfg.items():
+        probe_bits[impl] = {}
+        for name in names:
+            ul, dl = acc.make_sync_probe(cfg_i, name)(state_d)
+            probe_bits[impl][name] = [int(b) for b in ul] + [int(dl)]
+        ups, down = acc.make_sync_probe(cfg_i, "bitmap").payloads(state_d)
+        payloads[impl] = ups + [down]
+    torch.cuda.synchronize()
+    probe_launches = {k: fn.launches for k, fn in counters.items()}
+    for b, t in rows_d.items():  # the probes left the state as it was
+        if not torch.equal(t.view(torch.int32), sync_state[b].view(torch.int32)):
+            raise AssertionError(f"comm: the sync probe changed {b}")
+    # the pallas probe's payloads on the card against a CPU copy of the state
+    state_c = hfl_state({b: t.cpu() for b, t in sync_state.items()})
+    ups_c, down_c = acc.make_sync_probe(comm_cfg["pallas"], "bitmap").payloads(state_c)
+    for j, ((v, i), (vc, ic)) in enumerate(zip(payloads["pallas"], ups_c + [down_c])):
+        same_bits(torch, [v.cpu()], [vc], f"comm payload {j} values")
+        same(torch, [i.cpu()], [ic], f"comm payload {j} indices")
+    del state_c, ups_c, down_c
+    # device counts against the host measure_bits: every codec on uplink 0
+    # and the downlink, the cheap codecs on all 8 payloads
+    host_checked = 0
+    for impl, pl in payloads.items():
+        for name in names:
+            codec = cod.get_codec(name)
+            for j, (v, i) in enumerate(pl):
+                dev_bits = int(codec.measure_bits_torch(v, i, Qf))
+                if dev_bits != probe_bits[impl][name][j]:
+                    raise AssertionError(f"comm {impl} {name}: probe and payload "
+                                         f"counts differ on payload {j}")
+                if name in cheap or j in (0, N_f):
+                    if codec.measure_bits(v, i, Qf) != dev_bits:
+                        raise AssertionError(f"comm {impl} {name}: device and host "
+                                             f"counts differ on payload {j}")
+                    host_checked += 1
+    # the bitmap streams through the bitpack kernel, on the pallas payloads
+    kernel_encodes = 0
+    for j, (v, i) in enumerate(payloads["pallas"]):
+        for name in ("bitmap", "bitmap-q8"):
+            codec = cod.get_codec(name)
+            got = codec.encode(v, i, Qf, impl="pallas")
+            kernel_encodes += 1
+            if not np.array_equal(got, codec.encode(v, i, Qf)):
+                raise AssertionError(f"comm {name}: kernel and numpy streams "
+                                     f"differ on payload {j}")
+            if 8 * got.size != probe_bits["pallas"][name][j]:
+                raise AssertionError(f"comm {name}: stream length != measured bits")
+            cv, ci = codec._coalesce(v, i)
+            dv, di = codec.decode(got, Qf)
+            # by value: q8 codes carry no sign of zero, its wire values may
+            if not (np.array_equal(di, ci)
+                    and np.array_equal(dv, codec.wire_values(cv))):
+                raise AssertionError(f"comm {name}: decode(encode) is not the "
+                                     f"payload on payload {j}")
+    # bitmap_payload of the dense downlink payload, card against CPU
+    dvals, didx = payloads["pallas"][N_f]
+    d = sp.unpack_topk(dvals, didx, Qf)
+    packed, vals = bops.bitmap_payload(d)
+    packed_c, vals_c = bops.bitmap_payload(d.cpu())
+    if packed != packed_c or not np.array_equal(vals.view(np.int32),
+                                                vals_c.view(np.int32)):
+        raise AssertionError("comm: bitmap_payload differs between card and CPU")
+    del d
+    torch.cuda.synchronize()
+    comm_launches = {k: fn.launches for k, fn in counters.items()}
+    if comm_launches["bitpack"] != kernel_encodes + 1:
+        raise AssertionError(f"comm: bitpack launched {comm_launches['bitpack']} "
+                             f"times, want {kernel_encodes + 1}")
+    want_probe = (len(names) + 1) * (N_f + 1)  # one Ω per payload per probe run
+    for impl, kern in (("pallas", ("update_max", "tail_hist")),
+                       ("fused", ("block_select",))):
+        for name in kern:
+            if probe_launches[name] != want_probe:
+                raise AssertionError(f"comm {impl}: {name} launched "
+                                     f"{probe_launches[name]} times, want {want_probe}")
+    by_path["comm (ResNet-18 sync state)"] = comm_launches
+    # what make_sync then sends on a copy of the state is what each probe
+    # measured: w_ref' = w_ref + d, eps'_n = drift_n - sent_n, bit for bit
+    for impl, cfg_i in comm_cfg.items():
+        rows_s = {b: t.clone() for b, t in sync_state.items()}
+        drift = rows_s["eps_n"].clone()
+        H._pack_drift(drift, state_d.params, rows_s["w_ref"],
+                      cfg_i.tiers[1].beta_up, spec_f)
+        new = H.make_sync(H.SyncPlan(cfg_i))(hfl_state(rows_s))
+        dvals, didx = payloads[impl][N_f]
+        want = sync_state["w_ref"].clone().index_add_(0, didx.long(), dvals)
+        same_bits(torch, [fl.pack(new.w_ref)[0]], [want],
+                  f"comm {impl}: sync w_ref vs probe")
+        eps1 = fl.pack_stacked(new.eps)[0]
+        for n, (v, i) in enumerate(payloads[impl][:N_f]):
+            want = drift[n].index_add_(0, i.long(), -v)
+            same_bits(torch, [eps1[n]], [want], f"comm {impl}: sync eps {n} vs probe")
+        del rows_s, drift, want, new, eps1
+    torch.cuda.synchronize()
+    # the ledger of one sync round per codec: measured fronthaul payloads,
+    # synthetic access payloads, beside the analytic 32·(1 - φ) bits/param
+    t0, t1 = hfl_f.tiers
+    phis = {"mu_ul": t0.phi_up, "sbs_dl": t0.phi_down, "sbs_ul": t1.phi_up,
+            "mbs_dl": t1.phi_down}
+    ledgers = {}
+    for impl in payloads:
+        ledgers[impl] = {}
+        for name in names:
+            led = acc.PayloadLedger(codec=name, size=Qf)
+            led.record("mu_ul", acc.access_bits(name, Qf, phis["mu_ul"]) * K_f,
+                       events=K_f)
+            led.record("sbs_dl", acc.access_bits(name, Qf, phis["sbs_dl"]) * N_f,
+                       events=N_f)
+            led.record("sbs_ul", sum(probe_bits[impl][name][:N_f]), events=N_f)
+            led.record("mbs_dl", probe_bits[impl][name][N_f])
+            summ = led.summary()
+            ledgers[impl][name] = {
+                "bits_per_param": {l: led.bits[l] / (led.events[l] * Qf)
+                                   for l in acc.LINKS},
+                "bits_per_param_mean": summ["bits_per_param_mean"]}
+    emit({"phase": "comm_ledger", "Q": Qf, "clusters": N_f, "mus": K_f,
+          "analytic_bits_per_param": {l: 32.0 * (1.0 - p) for l, p in phis.items()},
+          "k": {l: sp.keep_count(Qf, p) for l, p in phis.items()},
+          "ledgers": ledgers})
+    # the entry point, on the card at its default size
+    t_cb = time.perf_counter()
+    cb_rows, cb = comm_bits.run(device="cuda")
+    torch.cuda.synchronize()
+    for tag, metrics in cb_rows:
+        print(f"{tag},{metrics}", flush=True)
+    if not (cb["dense_f32_matches_analytic_phi0"]
+            and cb["sparse_codecs_beating_analytic_at_0.99"]):
+        raise AssertionError("comm_bits: an invariant failed")
+    emit({"phase": "comm_path", "Q": Qf, "impls": list(payloads),
+          "codecs": names, "payloads_per_probe": N_f + 1,
+          "payload_k": [int(v.numel()) for v, _ in payloads["pallas"]],
+          "pallas_payloads_card_equal_cpu": True, "state_unchanged": True,
+          "sync_sends_probe_payloads": list(comm_cfg),
+          "host_count_checks": host_checked, "kernel_encodes": kernel_encodes,
+          "bitmap_payload_card_equal_cpu": True, "launches": comm_launches,
+          "comm_bits": {"size": cb["size"], "crossover": cb["bitmap_to_delta_crossover_phi"],
+                        "winner_0.99": cb["best_winner_by_phi"]["0.99"]["codec"],
+                        "seconds": time.perf_counter() - t_cb},
+          "seconds": time.perf_counter() - t6})
+    del payloads, state_d, rows_d, sync_state
+    free(torch)
+
+    # ---- 7. kernel summary --------------------------------------------------
     meta = {
         "block_select": ("src/repro_torch/csrc/fused_sync.cu",
                          "src/repro/kernels/fused_sync/kernel.py:67"),
@@ -579,10 +853,17 @@ def main(argv):
                       "src/repro/kernels/dgc/kernel.py:88"),
         "apply_mask": ("src/repro_torch/csrc/dgc.cu",
                        "src/repro/kernels/dgc/kernel.py:119"),
+        "bitpack": ("src/repro_torch/csrc/bitpack.cu",
+                    "src/repro/kernels/bitpack/kernel.py:43"),
     }
+    # the headline numbers at the shape of the path each kernel came with;
+    # every shape timed under "shapes"
+    first_shape = {"block_select": "olmo-1b", "update_max": "olmo-1b",
+                   "tail_hist": "olmo-1b", "apply_mask": "resnet18",
+                   "bitpack": "resnet18"}
     rows = []
     for name, (source, replaces) in meta.items():
-        k = kernels[name]
+        k = kernels[name][first_shape[name]]
         per_path = {p: c[name] for p, c in by_path.items() if c[name]}
         if not per_path:
             raise AssertionError(f"{name} was launched on no path")
@@ -591,7 +872,8 @@ def main(argv):
                      "launches_by_path": per_path,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                     "shape": first_shape[name], "shapes": kernels[name]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

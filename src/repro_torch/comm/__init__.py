@@ -1,0 +1,20 @@
+"""Byte-accurate payload codecs + measured-bits accounting: the port of
+``repro.comm``.
+
+The flat sync's real ``(values, indices)`` payloads are encoded by
+registered codecs (``repro_torch.comm.codecs``), counted on the device
+(``measure_bits_torch``) and recorded per link
+(``repro_torch.comm.accounting``). The depth > 2 probe
+(``make_hier_sync_probe``) is not ported yet (ROADMAP Queue 1 item 13).
+"""
+from repro_torch.comm.accounting import (
+    LINKS, PayloadLedger, access_bits, boundary_links, link_names,
+    make_sync_probe,
+)
+from repro_torch.comm.codecs import CODECS, Codec, get_codec, list_codecs
+
+__all__ = [
+    "CODECS", "Codec", "get_codec", "list_codecs",
+    "LINKS", "PayloadLedger", "access_bits", "boundary_links",
+    "link_names", "make_sync_probe",
+]

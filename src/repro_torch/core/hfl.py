@@ -187,68 +187,67 @@ def _unpack_ref_outputs(state: HFLState, wref, e, s, ref_spec, eps_spec):
                           eps=fl.unpack_stacked(s, eps_spec))
 
 
-def _make_flat_local_sync(hfl_cfg, wire):
-    """Whole-vector sync for omega_impl topk/hist/pallas: one ``pack_phi``
-    per cluster uplink and one for the downlink."""
+def flat_sync_payloads(hfl_cfg, params, wref, e, s, spec, uplinks=None):
+    """The payloads of one flat sync, formed in the buffers given: s [N, Q]
+    holds eps and is left with the residuals s_n - sent_n, e holds the MBS
+    error and is left with δ. The sync passes its live buffers, the sync
+    probe (``comm.accounting``) scratch copies, so both select through the
+    same route. Each cluster's sent payload (values, indices as selected)
+    is appended to ``uplinks`` when given. -> the downlink (values,
+    indices int64)."""
     impl = hfl_cfg.omega_impl
-    N = hfl_cfg.num_clusters
+    wire = wire_format_of(hfl_cfg)
     tier = hfl_cfg.tiers[1]
+    N, Q = s.shape
+    _pack_drift(s, params, wref, tier.beta_up, spec)
+    if impl == "fused":
+        from repro_torch.kernels.fused_sync import ops as fops
 
-    def flat_sync(state: HFLState):
-        wref, e, s, ref_spec, eps_spec = _sync_buffers(state, N)
-        Q = ref_spec.total
-        _pack_drift(s, state.params, wref, tier.beta_up, ref_spec)
-        # SBS side: whole-vector Ω uplinks; Σ sent in Python's left fold
-        acc = torch.zeros((Q,), dtype=torch.float32, device=s.device)
-        for n in range(N):
-            vals, idx = sp.pack_phi(s[n], tier.phi_up, impl=impl)
-            if wire:
-                vals = _wire_round_rows(vals, wire)
-            _scatter_rows(acc, s[n:n + 1], idx.long()[None], vals[None])
-        # MBS side: consensus + discounted error + Ω downlink
-        _consensus_delta(e, acc, N, tier.beta_down)
-        del acc
-        dvals, didx = sp.pack_phi(e, tier.phi_down, impl=impl)
-        if wire:
-            dvals = _wire_round_rows(dvals, wire)
-        didx = didx.long()
-        wref.index_add_(0, didx, dvals)  # new w_ref = w_ref + d
-        e.index_add_(0, didx, -dvals)    # new e = δ - d
-        return _unpack_ref_outputs(state, wref, e, s, ref_spec, eps_spec)
-
-    return flat_sync
-
-
-def _make_flat_fused_local_sync(hfl_cfg, wire):
-    """Whole-vector sync through the fused select (``kernels/fused_sync``):
-    the N uplink Ωs are one ``select_topk_rows`` call, the consensus is
-    the reference's ``jnp.mean`` over the sent rows."""
-    from repro_torch.kernels.fused_sync import ops as fops
-
-    N = hfl_cfg.num_clusters
-    tier = hfl_cfg.tiers[1]
-
-    def flat_sync(state: HFLState):
-        wref, e, s, ref_spec, eps_spec = _sync_buffers(state, N)
-        Q = ref_spec.total
-        _pack_drift(s, state.params, wref, tier.beta_up, ref_spec)
+        # the N uplink Ωs are one select_topk_rows call; Σ sent is allocated
+        # after it, outside the selection's peak
         vals, idx = fops.select_topk_rows(s, sp.keep_count(Q, tier.phi_up))
         if wire:
             vals = _wire_round_rows(vals, wire)
+        if uplinks is not None:
+            uplinks.extend(zip(vals, idx))
         # the reference's _scatter_rows clips pad indices (value 0) to Q-1
         idx = idx.long().clamp_max(Q - 1)
         acc = torch.zeros((Q,), dtype=torch.float32, device=s.device)
         _scatter_rows(acc, s, idx, vals)
         del vals, idx
-        _consensus_delta(e, acc, N, tier.beta_down)
-        del acc
-        dvals, didx = fops.select_topk_rows(e[None, :],
-                                            sp.keep_count(Q, tier.phi_down))
-        dvals, didx = dvals[0], didx[0].long()
-        if wire:
-            dvals = _wire_round_rows(dvals, wire)
-        wref.index_add_(0, didx, dvals)
-        e.index_add_(0, didx, -dvals)
+    else:
+        # whole-vector Ω uplinks; Σ sent in Python's left fold
+        acc = torch.zeros((Q,), dtype=torch.float32, device=s.device)
+        for n in range(N):
+            vals, idx = sp.pack_phi(s[n], tier.phi_up, impl=impl)
+            if wire:
+                vals = _wire_round_rows(vals, wire)
+            if uplinks is not None:
+                uplinks.append((vals, idx))
+            _scatter_rows(acc, s[n:n + 1], idx.long()[None], vals[None])
+    # MBS side: consensus + discounted error + Ω downlink
+    _consensus_delta(e, acc, N, tier.beta_down)
+    del acc
+    if impl == "fused":
+        dvals, didx = fops.select_topk_rows(e[None, :], sp.keep_count(Q, tier.phi_down))
+        dvals, didx = dvals[0], didx[0]
+    else:
+        dvals, didx = sp.pack_phi(e, tier.phi_down, impl=impl)
+    if wire:
+        dvals = _wire_round_rows(dvals, wire)
+    return dvals, didx.long()
+
+
+def _make_flat_sync(hfl_cfg):
+    """Whole-vector sync: the payloads of ``flat_sync_payloads`` in the
+    state's own buffers, then w_ref += d and e = δ - d."""
+    N = hfl_cfg.num_clusters
+
+    def flat_sync(state: HFLState):
+        wref, e, s, ref_spec, eps_spec = _sync_buffers(state, N)
+        dvals, didx = flat_sync_payloads(hfl_cfg, state.params, wref, e, s, ref_spec)
+        wref.index_add_(0, didx, dvals)  # new w_ref = w_ref + d
+        e.index_add_(0, didx, -dvals)    # new e = δ - d
         return _unpack_ref_outputs(state, wref, e, s, ref_spec, eps_spec)
 
     return flat_sync
@@ -320,11 +319,7 @@ def make_sync(plan: SyncPlan):
                                       "ROADMAP Queue 1 item 16")
         if hfl_cfg.omega_impl not in ("topk", "hist", "pallas", "fused"):
             raise ValueError(hfl_cfg.omega_impl)
-        wire = wire_format_of(hfl_cfg)
-        if hfl_cfg.omega_impl == "fused":
-            sync = _make_flat_fused_local_sync(hfl_cfg, wire)
-        else:
-            sync = _make_flat_local_sync(hfl_cfg, wire)
+        sync = _make_flat_sync(hfl_cfg)
     else:
         raise ValueError(mode)
     sync.collect_stats = False

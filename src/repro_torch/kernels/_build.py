@@ -40,6 +40,7 @@ SIGNATURES = {
     "rt_update_max": [P, P, P, F, LL, P, P, P, P],
     "rt_tail_hist": [P, P, I, LL, P, P, P],
     "rt_apply_mask": [P, P, P, LL, P, P, P, P],
+    "rt_bitpack": [P, LL, P, P, P],
 }
 
 

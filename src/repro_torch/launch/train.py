@@ -135,11 +135,13 @@ def run(args, *, on_sync=None) -> dict:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(ROADMAP {item})")
     if args.payload_accounting != "analytic":
-        raise SystemExit("--payload-accounting measured is not ported yet "
-                         "(ROADMAP Queue 1 item 11)")
+        raise SystemExit("--payload-accounting measured is not ported yet: "
+                         "the comm layer is (repro_torch.comm), the simulator "
+                         "that prices with it is ROADMAP Queue 1 item 12")
     if args.codec != "delta-varint":  # read only by measured accounting
-        raise SystemExit(f"--codec {args.codec} is not ported yet "
-                         "(ROADMAP Queue 1 item 11)")
+        raise SystemExit(f"--codec {args.codec} is not ported yet: measured "
+                         "accounting needs the simulator, ROADMAP Queue 1 "
+                         "item 12")
     dev = resolve(args.device)
     if dev.type == "cuda":  # model math in bf16/f32; never TF32
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -35,7 +35,8 @@ def _port_files():
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_reference(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax",
+                                  "ml_dtypes")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -108,6 +109,33 @@ def test_faithful_state_stays_on_w0_device(device):
     assert sim.state["u"].shape == (6, 64) and sim.state["w_tilde_n"].shape == (3, 64)
 
 
+def test_comm_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the card-less path")
+    from repro_torch.comm.codecs import get_codec
+    from repro_torch.kernels.bitpack import ops as bops
+    from repro_torch.launch import comm_bits
+
+    v, i = np.ones(3, np.float32), np.array([1, 5, 9], np.int32)
+    for name in ("bitmap", "bitmap-q8"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_codec(name).encode(v, i, 16, impl="pallas")  # device: cuda
+        np.testing.assert_array_equal(
+            get_codec(name).encode(v, i, 16, impl="pallas", device="cpu"),
+            get_codec(name).encode(v, i, 16))
+    x = np.array([0.0, 2.0, 0.0, -1.0], np.float32)
+    for fn in (bops.bitpack_bytes, bops.bitmap_payload):  # numpy: device rule
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(x)
+    assert bops.bitpack_bytes(x, device="cpu") == b"\x0a"
+    packed, vals = bops.bitmap_payload(x, device="cpu")
+    assert packed == b"\x0a" and vals.tolist() == [2.0, -1.0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        comm_bits.run(1024)
+    _, art = comm_bits.run(1024, device="cpu")
+    assert art["device"] == "cpu" and art["sparse_codecs_beating_analytic_at_0.99"]
+
+
 def test_unported_flags_raise():
     from repro_torch.launch import train
 
@@ -145,6 +173,20 @@ def test_kernel_wrappers_check_their_operands():
     with pytest.raises(ValueError):
         DK.apply_mask(ok, torch.zeros(512, 1024), th)
     assert all(t.shape == ok.shape for t in DK.apply_mask(ok, ok, th))
+    from repro_torch.kernels.bitpack import kernel as BK
+
+    with pytest.raises(ValueError):  # dtype
+        BK.bitpack(ok.double())
+    with pytest.raises(ValueError):  # rows not a multiple of 256
+        BK.bitpack(bad)
+    with pytest.raises(ValueError):  # not [R, 1024]
+        BK.bitpack(torch.zeros(256, 512))
+    with pytest.raises(ValueError):  # not contiguous
+        BK.bitpack(torch.zeros(1024, 256).t())
+    with pytest.raises(ValueError):  # device
+        BK.bitpack(torch.zeros(256, 1024, device="meta"))
+    out, counts = BK.bitpack(ok)
+    assert out.shape == (256, 128) and counts.shape == (1, 1)
 
 
 @pytest.mark.parametrize("alone", [False, True])
