@@ -7,10 +7,19 @@ the port starts and computes the right thing on the card.
 Phases (each ends in ``torch.cuda.synchronize()``; any failure exits
 nonzero):
   1. print the card's name and power limit; build the CUDA kernels from
-     ``src/repro_torch/csrc`` and print the build seconds;
+     ``src/repro_torch/csrc`` and print the build seconds and each kernel's
+     registers, spills and shared memory (``-Xptxas -v``);
   2. hold every kernel against its plain PyTorch version on the card,
      bitwise, on edge cases and at the paths' shapes (one JSON line per
-     check), and time kernel and plain version there; ``apply_mask`` is
+     check), and time kernel and plain version there; ``block_select`` on
+     the boundaries of its design (``cap_blk`` at, one before and one after
+     a warp's and a CTA's span, 1 and ``BLOCK_ELEMS``; a length ending
+     inside a span of the last tile; a tile of candidates only; NaN and
+     ±inf entries), ``tail_hist`` on elements equal to edges, NaN/±inf/±0,
+     collapsed edges, 1, 64 and 256 bins, 3 and 5 tiles and the real
+     ResNet-18 gradient, which is timed beside the gaussian with the device
+     time of its two passes (slice counts, ordered sum) from a short
+     ``torch.profiler`` capture; ``apply_mask`` is
      compared as bit patterns (signs of zeros included), and
      ``omega_pallas``/``dgc_step_pallas`` on the card against the same
      functions on CPU copies at one row of the faithful path's Q; so is
@@ -89,6 +98,11 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 N_CLUSTERS, STEPS, PERIOD = 2, 4, 2
+# kernel functions of csrc/*.cu, as the build log names them
+KERNEL_FUNCTIONS = ("select_kernel", "update_max_kernel", "slice_hist_kernel",
+                    "tile_order_sum_kernel", "apply_mask_kernel", "bitpack_kernel")
+# block_select's spans (csrc/fused_sync.cu): a warp's and a CTA's share of a tile
+SELECT_WARP_SPAN, SELECT_CTA_SPAN = 1024, 8192
 F_STEPS, F_LR = 8, 0.05  # the paper-exact path: 2 syncs, the example's lr
 MAIN_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
@@ -155,6 +169,49 @@ def same_bits(torch, got, want, what):
                 or not torch.equal(g.view(torch.int32), w.view(torch.int32))):
             raise AssertionError(f"{what}: kernel and plain version differ")
     return 0.0
+
+
+def ptxas_report(log):
+    """Per kernel of the build log (``nvcc -Xptxas -v``): registers, spill
+    stores and loads (bytes), static shared memory (bytes)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in KERNEL_FUNCTIONS if k in mangled), mangled)
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out.setdefault(name, {}).update(stack_bytes=nums[0], spill_stores=nums[1],
+                                            spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            entry = out.setdefault(name, {})
+            entry["registers"] = int(words[words.index("registers") - 1])
+            entry["smem_bytes"] = (int(words[words.index("smem") - 2])
+                                   if "smem" in words else 0)
+    return out
+
+
+def kernel_split(torch, fn, reps, flush=None):
+    """Mean device ms per call of each named kernel that ``fn`` launches,
+    from a short torch.profiler capture (``flush`` rewritten before each
+    call evicts the L2; its own kernel is not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    key = "self_device_time_total"
+    if not hasattr(next(iter(avg)), key):
+        key = "self_cuda_time_total"
+    return {k: sum(getattr(e, key) for e in avg if k in e.key) / reps / 1e3
+            for k in ("slice_hist_kernel", "tile_order_sum_kernel")}
 
 
 def split_by_hop(outcomes, steps, n_mus, n_clusters, period):
@@ -258,6 +315,9 @@ def main(argv):
     print(smi, flush=True)
     emit({"phase": "build", "seconds": _build.timed_build(),
           "library": str(_build.library_path().relative_to(ROOT))})
+    if _build.log_path().exists():  # absent when an earlier process built it
+        emit({"phase": "ptxas",
+              "kernels": ptxas_report(_build.log_path().read_text())})
 
     # the main path's sizes, from the port's own model at full width
     cfg = get_config("olmo-1b")
@@ -286,20 +346,37 @@ def main(argv):
     BE = FK.BLOCK_ELEMS
     BE_BP = BK.BLOCK_ROWS * BK.BLOCK_COLS
     tiny = float(torch.finfo(torch.float32).tiny)
+    ones = torch.ones(2 * BE, device=dev)  # every entry a candidate: slot = position
+    odd = rand(2 * BE + 777)
+    odd[::1001] = float("nan")  # |NaN| >= th is false
+    odd[5::997] = float("inf")
+    odd[7::991] = -float("inf")
     cases = [("gaussian", rand(1 << 24), 1.5, 12000),
              ("ragged", rand(3 * BE - 777), 1.0, 24000),
              ("overflow", torch.ones(2 * BE, device=dev), 0.5, 128),
-             ("all-zero", torch.zeros(BE + 5, device=dev), tiny, 64)]
+             ("all-zero", torch.zeros(BE + 5, device=dev), tiny, 64),
+             ("len inside a span of the last tile",
+              rand(2 * BE + 3 * SELECT_CTA_SPAN + 500), 1.0, 9000),
+             ("every entry a candidate", rand(2 * BE + 5), 0.0, BE),
+             ("NaN and ±inf", odd, 1.5, 12000),
+             ("no candidate (th = +inf)", rand(2 * BE + 5), float("inf"), 100),
+             ("cap_blk = 1", rand(3 * BE), 0.5, 1),
+             ("cap_blk = BLOCK_ELEMS", rand(3 * BE), 0.5, BE)]
+    cases += [(f"cap_blk at {span} {d:+d}", ones, 0.5, n0 + d)
+              for span, n0 in (("warp span", SELECT_WARP_SPAN),
+                               ("CTA span", SELECT_CTA_SPAN))
+              for d in (-1, 0, 1)]
     for name, x, th, cap in cases:
         n = x.numel()
         tht = torch.tensor([th], device=dev)
         got = FK.block_select(x, tht, cap, n)
         torch.cuda.synchronize()
-        err = same(torch, got, FK.block_select_plain(x, tht, cap, n),
-                   f"block_select[{name}]")
+        err = same_bits(torch, got, FK.block_select_plain(x, tht, cap, n),
+                        f"block_select[{name}]")
         emit({"check": "block_select", "case": name, "n": n, "cap_blk": cap,
-              "bitwise_equal": True, "max_abs_err": err})
-    del cases, x, got
+              "candidates": int(got[2].sum()), "bit_patterns_equal": True,
+              "max_abs_err": err})
+    del cases, x, got, ones, odd
     free(torch)
 
     def check_update_max(n, shape):
@@ -330,29 +407,60 @@ def main(argv):
         timed("update_max", shape, ms, plain_ms,
               4 * P * n_in + 8 * P + 4 * (rows // 256), 3 * P, err, P)
 
-    def check_tail_hist(n, shape):
-        rows = -(-n // (256 * 1024)) * 256
-        v = rand(rows, 1024)
-        edges = sp.linear_edges(v.abs().max(), 64).clamp_min(tiny)
+    def check_tail_hist(v, edges, case, shape=None):
         got = DK.tail_hist(v, edges)
         torch.cuda.synchronize()
-        err = same(torch, [got], [DK.tail_hist_plain(v, edges)], f"tail_hist[{n}]")
-        emit({"check": "tail_hist", "n": n, "rows": rows, "bins": 64,
-              "bitwise_equal": True, "max_abs_err": err,
+        err = same(torch, [got], [DK.tail_hist_plain(v, edges)],
+                   f"tail_hist[{case}]")
+        emit({"check": "tail_hist", "case": case, "rows": v.shape[0],
+              "bins": edges.numel(), "bitwise_equal": True, "max_abs_err": err,
               "count_at_edge0": float(got[0])})
         if not shape:
             return
         fn = lambda: DK.tail_hist(v, edges)
-        ms = (cuda_ms(torch, fn, 5) if shape == "olmo-1b"
-              else cuda_ms_cold(torch, fn, 20, flush))
+        cold = shape != "olmo-1b"  # one faithful row fits in the L2
+        ms = cuda_ms_cold(torch, fn, 20, flush) if cold else cuda_ms(torch, fn, 5)
+        split = kernel_split(torch, fn, 10 if cold else 3, flush if cold else None)
         plain_ms = cuda_ms(torch, lambda: DK.tail_hist_plain(v, edges), 1)
-        P = rows * 1024
-        timed("tail_hist", shape, ms, plain_ms, 4 * P + 8 * 64, 7 * P, err, P)
+        P = v.numel()
+        timed("tail_hist", shape, ms, plain_ms, 4 * P + 8 * edges.numel(), 7 * P,
+              err, P, data=case, slice_pass_ms=split["slice_hist_kernel"],
+              ordered_sum_ms=split["tile_order_sum_kernel"])
 
+    def lin_edges(v, bins):
+        return sp.linear_edges(v.abs().max(), bins).clamp_min(tiny)
+
+    # tail_hist edge cases: elements equal to edges, NaN/±inf/±0, the
+    # collapsed edges of an all-zero row, 1 and 256 bins, and 3 and 5 tiles
+    # (not a whole number of the kernel's 8 slices)
+    TILE = 256 * 1024
+    v = rand(3 * TILE // 1024, 1024)
+    e64 = lin_edges(v, 64)
+    eq = v.clone().reshape(-1)
+    pick = torch.randint(0, eq.numel(), (1 << 16,), generator=gen, device=dev)
+    eq[pick] = e64[torch.randint(0, 64, (1 << 16,), generator=gen, device=dev)]
+    eq[pick[::2]] *= -1.0
+    special = eq.clone()
+    special[pick[:4096]] = torch.tensor(
+        [float("nan"), float("inf"), -float("inf"), 0.0, -0.0, -float("nan"),
+         3.0, -1.5], device=dev).repeat(512)
+    for case, vv, ee in (
+            ("elements equal to edges", eq.reshape(v.shape), e64),
+            ("NaN, ±inf, ±0.0", special.reshape(v.shape), e64),
+            ("all edges tiny (an all-zero row)", torch.zeros_like(v),
+             lin_edges(torch.zeros_like(v), 64)),
+            ("bins = 1", v, lin_edges(v, 1)), ("bins = 64", v, e64),
+            ("bins = 256", v, lin_edges(v, 256)),
+            ("5 tiles", rand(5 * TILE // 1024, 1024), None)):
+        check_tail_hist(vv, lin_edges(vv, 64) if ee is None else ee, case)
+    del v, e64, eq, special, pick, vv, ee
     for n, shape in (((1 << 24) + 12345, None), (Q, "olmo-1b"), (Qf, "resnet18")):
         check_update_max(n, shape)
         free(torch)
-        check_tail_hist(n, shape)
+        rows = -(-n // TILE) * 256
+        v = rand(rows, 1024)
+        check_tail_hist(v, lin_edges(v, 64), f"gaussian, n = {n}", shape)
+        del v
         free(torch)
 
     # apply_mask at the faithful path's shape (Qf padded to whole tiles),
@@ -417,11 +525,17 @@ def main(argv):
     batch = (torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev))
     (grad,) = torch.autograd.grad(loss_fn(leaf, batch), leaf)  # the MU row at step 1
     del w0, leaf, loss_fn, batch
+    # tail_hist on that gradient, padded to tiles as the pallas Ω pads it
+    # (its values crowd into the lowest bins, unlike the gaussian's)
+    gt = dops._to_tiles(grad)[0]
+    check_tail_hist(gt, lin_edges(gt, 64), "resnet18 gradient", "resnet18 gradient")
+    del gt
     phi_f = PAPER.hfl.tiers[0].phi_up
     sel = fops.select_topk_rows
     cap_f = fops.candidate_capacity(Qf, kf)
     cap_blk_f = fops.tile_capacity(Qf, cap_f)
     ramp = torch.arange(Qf, device=dev, dtype=torch.float32) / Qf
+    no_th = torch.tensor([float("inf")], device=dev)  # no finite entry clears it
     for name, x in (("resnet gradient", grad), ("randn**3", rand(Qf) ** 3),
                     ("skewed tiles", rand(Qf) * torch.exp(4 * ramp))):
         th = fops._row_threshold(x[None], kf, bins=fops._BINS,
@@ -452,12 +566,16 @@ def main(argv):
         if name == "resnet gradient":  # the faithful path's row and data
             ms = cuda_ms_cold(torch, lambda: FK.block_select(x, th, cap_blk_f, Qf),
                               20, flush)
+            # the same bytes with no candidate: every slot a pad, the walk's
+            # stores predicated off
+            ms_none = cuda_ms_cold(torch, lambda: FK.block_select(x, no_th, cap_blk_f,
+                                                                  Qf), 20, flush)
             plain_ms = cuda_ms(torch, lambda: FK.block_select_plain(
                 x, th, cap_blk_f, Qf), 3)
             nb_f = got[2].shape[0]
             timed("block_select", "resnet18", ms, plain_ms,
                   4 * Qf + 8 * nb_f * cap_blk_f + 4 * nb_f + 4, 2 * Qf, 0.0, Qf,
-                  cap_blk=cap_blk_f)
+                  cap_blk=cap_blk_f, no_candidates_ms=ms_none)
     del grad, ramp, x, th, got, sent, mask, want_sent, want_mask
     free(torch)
 
@@ -542,10 +660,12 @@ def main(argv):
           "bitwise_equal": True, "max_abs_err": err})
     del got
     ms = cuda_ms(torch, lambda: FK.block_select(row, th[0:1], cap_blk, Q), 5)
+    ms_none = cuda_ms(torch, lambda: FK.block_select(row, no_th, cap_blk, Q), 5)
     plain_ms = cuda_ms(torch, lambda: FK.block_select_plain(row, th[0:1], cap_blk, Q), 1)
     timed("block_select", "olmo-1b", ms, plain_ms,
-          4 * Q + 8 * nb * cap_blk + 4 * nb + 4, 2 * Q, err, Q, cap_blk=cap_blk)
-    del S, row, th
+          4 * Q + 8 * nb * cap_blk + 4 * nb + 4, 2 * Q, err, Q, cap_blk=cap_blk,
+          no_candidates_ms=ms_none)
+    del S, row, th, no_th
     free(torch)
 
     # ---- 4. the main path ---------------------------------------------------

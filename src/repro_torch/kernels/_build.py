@@ -8,6 +8,9 @@ happens at first use, into ``build/repro_torch_kernels/`` at the root of
 the checkout, keyed by a hash of the sources and flags, so a fresh
 checkout builds everything it needs from its own sources.
 
+``-Xptxas -v`` reports each kernel's registers, spills and shared
+memory; ``log_path()`` keeps that output beside the library.
+
 Each C entry launches on the stream it is given (PyTorch's current
 stream) and returns ``cudaGetLastError()``; ``check`` raises on nonzero.
 Nothing here runs at import: the tests import every module on machines
@@ -30,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -38,7 +41,7 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "rt_block_select": [P, LL, P, I, I, LL, P, P, P, P],
     "rt_update_max": [P, P, P, F, LL, P, P, P, P],
-    "rt_tail_hist": [P, P, I, LL, P, P, P],
+    "rt_tail_hist": [P, P, I, LL, I, P, P, P],
     "rt_apply_mask": [P, P, P, LL, P, P, P, P],
     "rt_bitpack": [P, LL, P, P, P],
 }
@@ -70,6 +73,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
 
 
+def log_path() -> Path:
+    """The compilers' output of the library's build (``-Xptxas -v``)."""
+    return library_path().with_suffix(".log")
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; returns
     the library path. Objects compile in parallel, one ``nvcc`` each."""
@@ -86,13 +94,15 @@ def build() -> Path:
             procs.append((src, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        errors = []
+        errors, logs = [], []
         for src, proc in procs:
             log, _ = proc.communicate()
+            logs.append(log)
             if proc.returncode:
                 errors.append(f"nvcc failed on {src.name}:\n{log}")
         if errors:
             raise RuntimeError("\n".join(errors))
+        log_path().write_text("".join(logs))  # ptxas: registers, spills, smem
         tmp_lib = Path(tmp) / out.name
         res = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],

@@ -6,11 +6,12 @@ of the same names in ``src/repro/kernels/dgc/kernel.py``, all with
 (device-memory bytes: 20 B, 4 B and 20 B per element) and how the design
 keeps the outputs bitwise those of the plain versions below: σu + g as
 one fused multiply-add (what the reference kernel's compiled body
-computes) and v + u' as one rounded add in ``update_max``; exact per-tile
-int32 counts added in tile order in f32 in ``tail_hist``, the TPU grid's
-own accumulation; in ``apply_mask``, ĝ as a select (v or +0.0: XLA
-rewrites the body's v·mask so) and u'', v'' as f32 products with 1 - mask
-(a masked-in negative entry gives -0.0).
+computes) and v + u' as one rounded add in ``update_max``; exact int32
+counts per slice of a tile, added as integers per tile and then in tile
+order in f32 in ``tail_hist``, the TPU grid's own accumulation; in
+``apply_mask``, ĝ as a select (v or +0.0: XLA rewrites the body's v·mask
+so) and u'', v'' as f32 products with 1 - mask (a masked-in negative entry
+gives -0.0).
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version only for CPU tensors. Operands are (rows, 1024) f32 tiles with
@@ -26,6 +27,7 @@ from repro_torch.utils.fp import fma_f32
 BLOCK_ROWS = 256
 BLOCK_COLS = 1024
 MAX_BINS = 256
+HIST_SLICES = 8  # tail_hist blocks per tile (csrc/dgc.cu kHistSlices)
 
 
 def _check_tiles(name, *ts):
@@ -115,10 +117,11 @@ def tail_hist(v, edges):
     edges = edges.contiguous()
     nb = v.shape[0] // BLOCK_ROWS
     bins = edges.shape[0]
-    tile_counts = torch.empty((nb, bins), dtype=torch.int32, device=v.device)
+    # exact int32 tail counts per slice, [bins, tiles, HIST_SLICES]
+    ws = torch.empty((bins, nb, HIST_SLICES), dtype=torch.int32, device=v.device)
     counts = torch.empty((bins,), dtype=torch.float32, device=v.device)
     rc = _build.library().rt_tail_hist(
-        v.data_ptr(), edges.data_ptr(), bins, nb, tile_counts.data_ptr(),
+        v.data_ptr(), edges.data_ptr(), bins, nb, HIST_SLICES, ws.data_ptr(),
         counts.data_ptr(), _build.stream_of(v))
     _build.check(rc, "tail_hist")
     tail_hist.launches += 1

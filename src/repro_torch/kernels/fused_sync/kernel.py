@@ -4,8 +4,10 @@ Replaces the TPU kernel ``src/repro/kernels/fused_sync/kernel.py:
 block_select`` (body ``_select_kernel``) with ``csrc/fused_sync.cu``. What
 bounds it on the H100 and what its design does about that is written at
 the head of the CUDA source: it is bound by device-memory bytes (one read
-of the vector, one write of the candidate slots) and computes each slot
-with a warp ballot and a 32-entry scan instead of a per-element cumsum.
+of the vector, one write of the candidate slots); each tile is a cluster
+of CTAs that count their candidates, exchange the counts through
+distributed shared memory and scatter from registers, each slot found by
+a warp ballot instead of a per-element cumsum.
 
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version (``ref.block_select_ref``) only for CPU tensors.

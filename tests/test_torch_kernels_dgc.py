@@ -54,6 +54,48 @@ def test_tail_hist_counts_with_repeated_edges():
     np.testing.assert_array_equal(tc.numpy(), np.asarray(want, np.float32))
 
 
+_TINY = np.float32(np.finfo(np.float32).tiny)
+
+
+def _linear_edges(hi, bins):
+    """The callers' edges: linspace(0, 1)[:-1] * hi, floored at tiny."""
+    base = np.arange(bins, dtype=np.float32) / np.float32(bins)
+    return np.maximum(base * np.float32(hi), _TINY).astype(np.float32)
+
+
+def _hist_case(case, bins, tiles):
+    rng = np.random.default_rng(bins + tiles)
+    v = rng.standard_normal((tiles * TK.BLOCK_ROWS, TK.BLOCK_COLS)).astype(np.float32)
+    if case == "collapsed tiny edges":  # an all-zero row: hi = 0
+        v[:] = 0.0
+        return v, _linear_edges(0.0, bins)
+    edges = _linear_edges(np.abs(v).max(), bins)
+    flat = v.reshape(-1)
+    pos = rng.choice(flat.size, 4096, replace=False)
+    if case == "elements equal to edges":
+        flat[pos] = edges[rng.integers(0, bins, pos.size)] * rng.choice([-1, 1], pos.size)
+    elif case == "NaN, ±inf, ±0":  # no subnormals: XLA's CPU flushes them
+        flat[pos] = np.resize(np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, -np.nan],
+                                       np.float32), pos.size)
+    return v, edges
+
+
+@pytest.mark.parametrize("case,bins,tiles", [
+    ("elements equal to edges", 64, 2), ("elements equal to edges", 256, 1),
+    ("NaN, ±inf, ±0", 64, 2), ("NaN, ±inf, ±0", 1, 3), ("gaussian", 1, 3),
+    ("gaussian", 256, 1), ("collapsed tiny edges", 64, 2)])
+def test_tail_hist_plain_vs_pallas_edge_cases(case, bins, tiles):
+    """The cases the CUDA kernel's bin guess and its edge-pair check must
+    get right: an element equal to an edge clears it, NaN clears none, +inf
+    clears all; one edge; 256 edges; all edges equal (tiny)."""
+    v, edges = _hist_case(case, bins, tiles)
+    jc = JK.tail_hist(jnp.asarray(v), jnp.asarray(edges))
+    tc = TK.tail_hist(torch.from_numpy(v), torch.from_numpy(edges))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    want = [np.sum(np.abs(v) >= e) for e in edges]  # numpy: NaN >= e is False
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(want, np.float32))
+
+
 @pytest.mark.parametrize("n", [512, 1024, 262144, 300001])
 @pytest.mark.parametrize("phi", [0.9, 0.99])
 def test_threshold_pallas_vs_reference(n, phi):

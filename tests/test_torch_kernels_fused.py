@@ -57,6 +57,32 @@ def test_block_select_truncates_at_capacity():
     np.testing.assert_array_equal(tv.numpy(), v)
 
 
+@pytest.mark.parametrize("cap", [1023, 1024, 1025, 2047, 2048, 2049])
+def test_block_select_capacity_at_chunk_boundaries(cap):
+    """Every entry a candidate, so the capacity is reached exactly at, one
+    before or one after the first two 1,024-element chunk boundaries."""
+    x = np.ones(2 * BE, np.float32)
+    x[1::3] = -2.0
+    v, i, c = _pallas_block_select(x, 0.5, cap, x.size)
+    tv, ti, tc = TK.block_select(torch.from_numpy(x), _th(0.5), cap, x.size)
+    for a, b in ((tv, v), (ti, i), (tc, c)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    np.testing.assert_array_equal(ti[0].numpy(), np.arange(cap, dtype=np.int32))
+
+
+@pytest.mark.parametrize("th", [1.5, 0.0])
+def test_block_select_nan_and_inf_entries(th):
+    """|NaN| >= th is false for any th, ±inf is a candidate."""
+    n = 2 * BE + 777
+    x = np.random.default_rng(11).standard_normal(n).astype(np.float32)
+    x[::1001], x[5::997], x[7::991] = np.nan, np.inf, -np.inf
+    v, i, c = _pallas_block_select(x, th, 6000, n)
+    tv, ti, tc = TK.block_select(torch.from_numpy(x), _th(th), 6000, n)
+    for a, b in ((tv, v), (ti, i), (tc, c)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert not np.isnan(tv.numpy()).any() and np.isinf(tv.numpy()).any()
+
+
 def test_block_select_all_zero_and_tiny_threshold():
     x = np.zeros(2 * BE - 5, np.float32)
     tiny = float(np.finfo(np.float32).tiny)
