@@ -32,10 +32,14 @@ nonzero):
      counts decide must be the one the card's selection took;
      ``bitpack`` against its plain version (bytes and popcounts) on edge
      cases (n = 5, a ragged two-block n, NaN/±0/±inf/subnormal entries,
-     all-zero and all-one masks) and at the comm path's and olmo-1b's
-     shapes; and ``block_select``, ``update_max``, ``tail_hist`` and
-     ``bitpack`` timed at one row of the faithful path's Q with the L2
-     cache flushed before every launch (the row fits in the 50 MB L2);
+     all-zero and all-one masks), on its design's boundaries (one tile,
+     43 tiles, bits on both sides of every chunk and CTA span of three
+     tiles) and at the comm path's and olmo-1b's shapes, with the
+     occupancy calculator's clusters at once and the waves they make; and
+     ``block_select``, ``update_max``, ``tail_hist`` and ``bitpack`` timed
+     at one row of the faithful path's Q with the L2 cache flushed before
+     every launch (the row fits in the 50 MB L2; ``bitpack`` also after a
+     flush that reads, beside the events' own floor);
   3. fused selection on a gaussian [2, Q] matrix: ``select_topk_rows``
      (the ``block_select`` pipeline, which must answer it without the
      exact fallback) against the exact stable sort, timed
@@ -71,7 +75,22 @@ nonzero):
      per codec beside the analytic 32·(1 - φ), ``bitpack`` launched once
      per kernel-path encode and ``bitmap_payload`` call, and the
      ``launch.comm_bits`` entry point on the card;
-  7. one JSON line listing every ported kernel with its launches on each
+  7. the simulator's path, three runs through ``repro_torch.launch.train``
+     with ``--scenario`` (``sim.scenarios.build_engine`` and
+     ``SimEngine.run``) at full olmo-1b width, 4 steps (2 syncs):
+     ``paper-fig3`` (lockstep, 7 x 4 MUs, H = 2, ``FIG3_LAYERS`` layers,
+     ``pallas`` Ω, measured accounting with ``delta-varint``),
+     ``stragglers`` (deadline, ``2x2:H=2``, full depth, ``fused`` Ω,
+     ``--sim-seed 3``: the deadline drops a straggler) and ``dropout``
+     (lockstep with participation resampling, ``2x2:H=2``, full depth,
+     ``pallas`` Ω, ``--sim-seed 8``: a cluster sits out each round); each
+     checks the cluster rows identical after every sync, finite losses, a
+     sat-out cluster's params and momentum rows bitwise unchanged by a
+     train step, every kernel's launches against the count the sync and
+     probe imply, and (paper-fig3) the ledger's fronthaul bits against the
+     probe's counts, and prints steady s/step, sync ms, peak memory, the
+     virtual wall-clock and the drops per trace row;
+  8. one JSON line listing every ported kernel with its launches on each
      path (and their sum), error, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
@@ -103,7 +122,10 @@ KERNEL_FUNCTIONS = ("select_kernel", "update_max_kernel", "slice_hist_kernel",
                     "tile_order_sum_kernel", "apply_mask_kernel", "bitpack_kernel")
 # block_select's spans (csrc/fused_sync.cu): a warp's and a CTA's share of a tile
 SELECT_WARP_SPAN, SELECT_CTA_SPAN = 1024, 8192
+# bitpack's design (csrc/bitpack.cu): CTAs per tile, elements per chunk
+BP_CTAS, BP_CHUNK = 8, 4096
 F_STEPS, F_LR = 8, 0.05  # the paper-exact path: 2 syncs, the example's lr
+FIG3_LAYERS = 6  # paper-fig3's depth cut: 7 clusters' state at full width
 MAIN_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
              "--log-every", "1", "--device", "cuda"]
@@ -132,15 +154,20 @@ def cuda_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def cuda_ms_cold(torch, fn, reps, flush):
+def cuda_ms_cold(torch, fn, reps, flush, dirty=True):
     """Mean ms of ``fn`` with the L2 cache flushed (``flush`` rewritten,
     128 MB) before every launch; only the launch lies between the events.
     A spin of ~0.1 ms after the flush keeps the card busy while the host
-    enqueues the launch, so its host-side cost stays out of the time."""
+    enqueues the launch, so its host-side cost stays out of the time.
+    ``dirty=False`` flushes by reading ``flush`` instead: the L2 then holds
+    clean lines, and no write-back of the flush lands inside the launch."""
     fn()
     total = 0.0
     for _ in range(reps):
-        flush.zero_()
+        if dirty:
+            flush.zero_()
+        else:
+            flush.sum()
         torch.cuda._sleep(200_000)  # clock cycles
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -602,22 +629,43 @@ def main(argv):
     ragged = rand(BE_BP + 3) * (rand(BE_BP + 3) > 1.0)  # two blocks, ragged
     ragged[torch.randperm(ragged.numel(), generator=gen, device=dev)[:4096]] = (
         odd.repeat(512))
+    # the design's own boundaries: a tile is a cluster of BP_CTAS CTAs, each
+    # walking its span in chunks of BP_CHUNK elements; bits set on either
+    # side of every chunk and span boundary of three tiles, and one tile
+    edges = torch.zeros(3 * BE_BP, device=dev)
+    for step in (BP_CHUNK, BE_BP // BP_CTAS, BE_BP):
+        at = torch.arange(step, 3 * BE_BP, step, device=dev)
+        for d in (-1, 0, 1):
+            edges[(at + d).clamp(0, 3 * BE_BP - 1)] = 1.0
     for name, flat in (("n = 5", odd[:5]), ("ragged two-block", ragged),
                        ("all-zero", torch.zeros(262147, device=dev)),
-                       ("all-one", torch.ones(262147, device=dev))):
+                       ("all-one", torch.ones(262147, device=dev)),
+                       ("one tile", (rand(BE_BP) > 1.2816).float()),
+                       ("chunk and CTA-span boundaries, three tiles", edges),
+                       ("43 tiles", (rand(43 * BE_BP) > 0.0).float())):
         check_bitpack(name, flat)
-    del odd, ragged
+    del odd, ragged, edges
+    bp_clusters = BK.active_clusters()
     for shape, n, reps in (("resnet18", Qf, 20), ("olmo-1b", Q, 5)):
         tiles = check_bitpack(shape, (rand(n) > 1.2816).float())  # ≈ 10 % set
         if shape == "olmo-1b":
             ms = cuda_ms(torch, lambda: BK.bitpack(tiles), reps)
+            extra = {}
         else:
             ms = cuda_ms_cold(torch, lambda: BK.bitpack(tiles), reps, flush)
+            # the same launch after a clean (read) flush, and the floor of
+            # the method: the events around a one-element fill
+            one = torch.empty(1, device=dev)
+            extra = {"ms_clean_l2": cuda_ms_cold(torch, lambda: BK.bitpack(tiles),
+                                                 reps, flush, dirty=False),
+                     "event_floor_ms": cuda_ms_cold(torch, lambda: one.fill_(1.0),
+                                                    reps, flush, dirty=False)}
         plain_ms = cuda_ms(torch, lambda: BK.bitpack_plain(tiles), 1)
         P = tiles.numel()
         # read the f32 mask once, write one bit per element and the counts
         timed("bitpack", shape, ms, plain_ms, 4 * P + P // 8 + 4 * (P // BE_BP),
-              P, 0.0, P)
+              P, 0.0, P, tiles=P // BE_BP, active_clusters=bp_clusters,
+              waves=-(-(P // BE_BP) // bp_clusters), **extra)
         del tiles
         free(torch)
 
@@ -963,7 +1011,120 @@ def main(argv):
     del payloads, state_d, rows_d, sync_state
     free(torch)
 
-    # ---- 7. kernel summary --------------------------------------------------
+    # ---- 7. the simulator's path -------------------------------------------
+    # three scenario runs through the train CLI's build_engine + SimEngine.run
+    # at full olmo-1b width; paper-fig3's 7 x 4 clusters at a depth cut (the
+    # state of 7 full-depth clusters does not fit the card)
+    from repro_torch.configs import HFLConfig, parse_tiers_spec
+    from repro_torch.sim.scenarios import apply_hfl_overrides, get_scenario
+
+    t7 = time.perf_counter()
+    sim_runs = (("paper-fig3", "pallas", ["--layers", str(FIG3_LAYERS),
+                                          "--payload-accounting", "measured",
+                                          "--codec", "delta-varint"]),
+                # the seeds make the checks bite (the fleet is numpy, the
+                # same on every machine): seed 3 drops a straggler in both
+                # rounds, seed 8 has a cluster sit out each round
+                ("stragglers", "fused", ["--tiers", f"{N_CLUSTERS}x2:H={PERIOD}",
+                                         "--sim-seed", "3"]),
+                ("dropout", "pallas", ["--tiers", f"{N_CLUSTERS}x2:H={PERIOD}",
+                                       "--sim-seed", "8"]))
+    for name, impl, extra in sim_runs:
+        args = train.parse_args(
+            ["--full", "--scenario", name, "--omega-impl", impl, "--batch-per-mu",
+             "4", "--seq", "128", "--steps", str(STEPS), "--log-every", "1",
+             "--device", "cuda"] + extra)
+        hfl_s = apply_hfl_overrides(get_scenario(name), HFLConfig(
+            tiers=parse_tiers_spec(args.tiers or "4x2:H=4")))
+        n_s, syncs_s = hfl_s.num_clusters, STEPS // hfl_s.tiers[1].period
+        measured = args.payload_accounting == "measured"
+        # every sync selects N + 1 rows, and the measured probe selects them
+        # again on scratch copies before it
+        per_sync = (n_s + 1) * (2 if measured else 1)
+        want = {k: 0 for k in counters}
+        for k in path_kernels[impl]:
+            want[k] = per_sync * syncs_s
+        identical, sat_out = [], []
+
+        def on_sync(i, state, seconds):
+            identical.append(all(
+                torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
+                for n in range(1, P.shape[0])))
+
+        def wrap(step_fn):
+            def checked(state, batch, keep=None):
+                out = [] if keep is None else [n for n in range(len(keep))
+                                                if not keep[n]]
+                leaves = tree_leaves(state.params) + tree_leaves(state.opt["m"])
+                before = [P[n].clone() for n in out for P in leaves]
+                state, loss = step_fn(state, batch, keep=keep)
+                after = [P[n] for n in out for P in leaves]
+                if not all(torch.equal(a.view(torch.int16) if a.element_size() == 2
+                                       else a.view(torch.int32),
+                                       b.view(torch.int16) if b.element_size() == 2
+                                       else b.view(torch.int32))
+                           for a, b in zip(after, before)):
+                    raise AssertionError(f"sim {name}: a sat-out cluster's rows "
+                                         "changed in a train step")
+                sat_out.append(out)
+                return state, loss
+            return checked
+
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        out = train.run(args, on_sync=on_sync, wrap_train_step=wrap)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        by_path[f"sim {name} {impl}"] = launches
+        trace = out["trace"]
+        meta = trace.meta
+        syncs_rows = [r for r in trace.rows if r["kind"] == "sync"]
+        line = {"phase": "sim_path", "scenario": name, "impl": impl,
+                "discipline": meta["discipline"], "accounting": meta["payload_accounting"],
+                "arch": cfg.name, "layers": args.layers or cfg.num_layers,
+                "d_model": cfg.d_model, "clusters": n_s,
+                "mus_per_cluster": hfl_s.mus_per_cluster, "steps": STEPS,
+                "syncs": syncs_s, "sim_seed": args.sim_seed, "losses": out["hist"],
+                "eval_loss": out["eval_loss"],
+                "steady_s_per_step": out["timing"]["steady_s_per_step"],
+                "first_step_s": out["timing"]["compile_s"],
+                "sync_ms": [1e3 * x for x in out["sync_s"]],
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "virtual_wallclock_s": trace.wallclock,
+                "dropped_by_row": [r["dropped"] for r in trace.rows],
+                "deadline_s": [r["deadline_s"] for r in syncs_rows],
+                "sat_out_by_step": sat_out, "launches": launches,
+                "launches_want": want, "rows_identical_after_sync": identical,
+                "card": smi}
+        if measured:
+            line["ledger"] = {k: meta[k] for k in (
+                "codec", "payload_size", "bits_sbs_ul", "bits_mbs_dl",
+                "events_sbs_ul", "events_mbs_dl", "bits_per_param_mean")}
+        emit(line)
+        if launches != want:
+            raise AssertionError(f"sim {name}: launches {launches}, want {want}")
+        if not (len(identical) == syncs_s and all(identical)):
+            raise AssertionError(f"sim {name}: cluster rows differ after a sync")
+        if not (math.isfinite(out["eval_loss"])
+                and all(math.isfinite(l) for l in out["hist"])):
+            raise AssertionError(f"sim {name}: non-finite loss")
+        if len(sat_out) != STEPS or (name == "dropout" and not any(sat_out)):
+            raise AssertionError(f"sim {name}: sat-out steps {sat_out}")
+        if name == "stragglers" and not any(r["dropped"] for r in trace.rows):
+            raise AssertionError("sim stragglers: the deadline dropped no MU")
+        if measured:  # the ledger's fronthaul = the probe's host counts
+            if not (meta["bits_sbs_ul"] == sum(r["bits_sbs_ul"] for r in syncs_rows)
+                    and meta["bits_mbs_dl"] == sum(r["bits_mbs_dl"] for r in syncs_rows)
+                    and meta["events_sbs_ul"] == n_s * syncs_s
+                    and meta["events_mbs_dl"] == syncs_s):
+                raise AssertionError(f"sim {name}: ledger and probe counts differ")
+        del out, trace
+    emit({"phase": "sim_path_done", "seconds": time.perf_counter() - t7})
+    free(torch)
+
+    # ---- 8. kernel summary --------------------------------------------------
     meta = {
         "block_select": ("src/repro_torch/csrc/fused_sync.cu",
                          "src/repro/kernels/fused_sync/kernel.py:67"),

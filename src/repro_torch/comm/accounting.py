@@ -16,13 +16,17 @@ at depth 2.
                             and uniformly spread indices (the per-MU train
                             step never materializes those payloads).
 
+  * ``warn_index_bits_deprecated`` -- once per process, when the
+                            simulator prices with a nonzero
+                            ``LatencyParams.index_bits``.
+
 Not ported yet: the depth > 2 probe ``make_hier_sync_probe`` (ROADMAP
-Queue 1 item 13), the ledger's live metrics mirror ``registry`` (item 14)
-and ``warn_index_bits_deprecated`` (item 12, with the simulator that
-prices events with these counts).
+Queue 1 item 13) and the ledger's live metrics mirror ``registry`` (item
+14).
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import Dict
@@ -188,3 +192,31 @@ def make_sync_probe(hfl_cfg, codec: "str | Codec"):
 
     probe.payloads = payloads
     return probe
+
+
+# ---------------------------------------------------------------------------
+# index_bits deprecation
+# ---------------------------------------------------------------------------
+
+
+_index_bits_warned = False
+
+
+def warn_index_bits_deprecated(lp) -> None:
+    """``LatencyParams.index_bits`` is deprecated under both accounting
+    modes: measured accounting counts the real codec index streams (a
+    nonzero value double-charges them) and analytic accounting reproduces
+    the paper's Q·(1-φ)·bits_per_param. Warns once per process."""
+    global _index_bits_warned
+    if _index_bits_warned or not getattr(lp, "index_bits", 0.0):
+        return
+    _index_bits_warned = True
+    warnings.warn(
+        "LatencyParams.index_bits is deprecated: measured accounting "
+        "already counts the real codec index streams (a nonzero value "
+        "double-charges them), and analytic accounting should match the "
+        "paper's Q*(1-phi)*bits_per_param. Keep index_bits=0 (the "
+        "paper's accounting). This warning fires once per process.",
+        DeprecationWarning,
+        stacklevel=3,
+    )

@@ -3,7 +3,7 @@
 Holds the architectures the port runs so far (the dense transformer path).
 """
 from repro_torch.configs.base import (  # noqa: F401
-    HFLConfig, ModelConfig, TierConfig, parse_tiers_spec,
+    HFLConfig, ModelConfig, SimConfig, TierConfig, parse_tiers_spec,
 )
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
 

@@ -1,16 +1,16 @@
 """Config schema: the port's copy of ``repro.configs.base``.
 
 ``ModelConfig`` (with ``reduced()``), ``TierConfig``, ``HFLConfig`` (the
-per-tier ``tiers`` API) and ``parse_tiers_spec``, field for field. The
-legacy scalar ``HFLConfig`` keywords and read shims are not carried over;
-``SimConfig`` is not ported yet.
+per-tier ``tiers`` API), ``parse_tiers_spec`` and ``SimConfig``, field for
+field. The legacy scalar ``HFLConfig`` keywords and read shims are not
+carried over.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -241,3 +241,86 @@ class HFLConfig:
     @property
     def total_mus(self) -> int:
         return math.prod(t.fanout for t in self.tiers)
+
+
+# ---------------------------------------------------------------------------
+# Simulation (event-driven HCN scenario engine) config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SimConfig:
+    """Scenario knobs for the event-driven simulator (``repro_torch.sim``).
+
+    The wireless side (cell geometry, rate model) lives in
+    ``wireless.latency.LatencyParams``; this config holds everything the
+    *fleet* and the *schedule* add on top: per-device compute speed,
+    availability, mobility, and the sync discipline.
+    """
+
+    scenario: str = "paper-fig3"
+    # lockstep (paper) | deadline (straggler drop) | async (own clocks,
+    # staleness-weighted consensus)
+    discipline: str = "lockstep"
+    seed: int = 0
+    base_compute_s: float = 0.05  # mean wall time of one local iteration
+    compute_sigma: float = 0.0  # lognormal sigma of per-MU compute multiplier
+    dropout: float = 0.0  # per-round MU unavailability probability
+    # diurnal availability curve (0 = flat, the legacy behaviour):
+    # unavail(t) = clip(dropout * (1 + amp * sin(2pi (t/period + phase))), 0, 1)
+    diurnal_amp: float = 0.0
+    diurnal_period_s: float = 86400.0
+    diurnal_phase: float = 0.0
+    speed_mps: float = 0.0  # random-waypoint speed; 0 = static (paper)
+    deadline_factor: float = 1.5  # deadline = factor * median per-MU round time
+    # --- client selection (participation-rate policies, sim.selection) ---
+    # fraction of each cluster's available members picked per round; 1.0
+    # keeps the legacy everyone-participates behaviour (no selector built)
+    prate: float = 1.0
+    # uniform -- unbiased per-round draw from the availability mask
+    # biased  -- best-channel-first (top UL rate), the Pareto-front policy
+    # kmeans  -- location-based k-means per cluster: one member nearest
+    #            each of ceil(prate*members) centroids (coverage-preserving)
+    selection: str = "uniform"
+    staleness_exp: float = 1.0  # async weight = (1/N) * (1+staleness)^-exp
+    reuse: int = 1  # frequency-reuse factor for the cluster coloring
+    # --- trace-driven mobility replay (repro.sim.traces) ---
+    # external CSV/JSONL trace to replay (columns t,mu_id,x,y); exclusive
+    # with speed_mps > 0 and with trace_model
+    trace_file: Optional[str] = None
+    # synthetic trace generator to replay instead of a file:
+    # random-waypoint | manhattan | hotspot-drift
+    trace_model: Optional[str] = None
+    trace_speed_mps: float = 0.0  # generator speed; 0 = the model's default
+    trace_duration_s: float = 600.0  # generated trace length [virtual s]
+    trace_dt_s: float = 5.0  # generator sample spacing [virtual s]
+    # data residency as mobility re-associates MUs
+    # (data.federated.ResidencyTracker):
+    #   static    -- legacy: shards pinned to birth slots, no tracker
+    #   move      -- the shard follows the MU's radio association
+    #   duplicate -- every visited cluster keeps a copy
+    #   stale     -- tracker attached but shards never leave the birth
+    #                cluster (explicit control arm for the benchmark)
+    residency: str = "static"
+    # --- fleet scale (the million-MU regime) ---
+    # physical MUs per cluster; None = hfl.mus_per_cluster (every MU owns a
+    # training slot, the legacy 1:1 layout). Larger values oversubscribe:
+    # the fleet is subsampled into the mpc training slots each round
+    # (requires a residency tracker to pick the resident shards).
+    fleet_mus_per_cluster: Optional[int] = None
+    # UL rate pricing: "maxmin" = Alg. 2 max-min sub-carrier allocation
+    # (exact, needs M >= members per cluster); "single" = shared single
+    # sub-carrier M-QAM rates (any fleet size, streamed in chunks)
+    rate_model: str = "maxmin"
+    # mobility bookkeeping cadence [virtual s]: 0 = advance/re-associate/
+    # re-price at every event (legacy); > 0 batches fleet movement and
+    # re-pricing to at most once per interval (fleet-scale runs)
+    reprice_interval_s: float = 0.0
+    # fault injection for the health monitor: a cluster index whose MUs
+    # are forced unavailable every round (masked AFTER the availability
+    # RNG draw, so all other clusters' trajectories are untouched); None
+    # = no fault. Drives the dead/starved-cluster anomaly rule.
+    fault_dead_cluster: Optional[int] = None
+    # observability: None keeps telemetry off; an enabled config raises
+    # until ROADMAP Queue 1 item 14 ports it (obs/telemetry.py)
+    obs: Optional[object] = None

@@ -79,15 +79,26 @@ def _row(tree, n):
 
 def make_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
     """loss_fn(params, batch) -> (loss, aux); batch leaves [N, localB, ...].
-    Returns ``train_step(state, batch) -> (state, losses [N])``; params and
-    optimizer state are updated in place, cluster by cluster."""
+    Returns ``train_step(state, batch, keep=None) -> (state, losses [N])``;
+    params and optimizer state are updated in place, cluster by cluster.
 
-    def train_step(state: HFLState, batch):
+    ``keep`` (bool [N], the simulator's participation): a cluster with
+    ``keep[n]`` False sat the round out. Its loss is computed and counted,
+    its params and optimizer rows stay as they were, and ``step`` advances:
+    the reference's vmapped step followed by ``sim.engine._merge_clusters``.
+    """
+
+    def train_step(state: HFLState, batch, keep=None):
         lr = lr_schedule(state.step)
         N = tree_leaves(state.params)[0].shape[0]
         losses, opt_n = [], None
         for n in range(N):
             p_n = _row(state.params, n)
+            if keep is not None and not keep[n]:
+                with torch.no_grad():
+                    loss, _aux = loss_fn(p_n, _row(batch, n))
+                losses.append(loss.detach())
+                continue
             leaves, treedef = tree_flatten(p_n)
             req = [l.detach().requires_grad_(True) for l in leaves]
             with torch.enable_grad():
@@ -99,9 +110,10 @@ def make_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
             _, opt_n = optimizer.update(tree_unflatten(treedef, grads),
                                         _row(state.opt, n), p_n, lr)
             losses.append(loss.detach())
-        # host-side counters (AdamW's t) advance once per step
+        # host-side counters (AdamW's t, one for all clusters) advance once
+        # per step in which some cluster trained
         opt = dict(state.opt)
-        opt.update({k: v for k, v in opt_n.items()
+        opt.update({k: v for k, v in (opt_n or {}).items()
                     if not isinstance(v, (dict, torch.Tensor))})
         return state._replace(opt=opt, step=state.step + 1), torch.stack(losses)
 

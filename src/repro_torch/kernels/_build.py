@@ -44,6 +44,7 @@ SIGNATURES = {
     "rt_tail_hist": [P, P, I, LL, I, P, P, P],
     "rt_apply_mask": [P, P, P, LL, P, P, P, P],
     "rt_bitpack": [P, LL, P, P, P],
+    "rt_bitpack_active_clusters": [P],
 }
 
 

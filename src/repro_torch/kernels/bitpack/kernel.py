@@ -3,9 +3,11 @@
 Replaces the TPU kernel ``src/repro/kernels/bitpack/kernel.py:bitpack``
 (body ``_bitpack_kernel``) with ``csrc/bitpack.cu``, whose head states
 its bound on the H100 (device-memory bytes, 4.125 B per element) and how
-the design streams to it: a warp's xor-shuffles assemble LSB-first 32-bit
-words from float4 nibbles, and exact int32 popcounts reach each tile's
-count through one integer atomic per block.
+the design streams to it in one launch: a tile is a cluster of 8 CTAs
+that keep the next chunk's float4 loads in flight while a warp's
+xor-shuffles assemble LSB-first 32-bit words from the current one, and
+the CTAs' popcounts meet in CTA 0's shared memory, which stores the
+tile's count (no memset, no atomics).
 
 The function is the TPU body's, not its layout: bytes come out as uint8
 (the reference kept one byte per int32 lane), equal by value. A mask
@@ -68,3 +70,14 @@ def bitpack(mask):
 
 
 bitpack.launches = 0
+
+
+def active_clusters() -> int:
+    """How many of the kernel's clusters (one per tile) the card holds at
+    once, from the CUDA occupancy calculator (card only)."""
+    import ctypes
+
+    n = ctypes.c_int(0)
+    _build.check(_build.library().rt_bitpack_active_clusters(ctypes.byref(n)),
+                 "bitpack occupancy")
+    return n.value

@@ -10,14 +10,30 @@ streams and ``first-loss/last-loss/eval-loss`` trailer as the reference:
   PYTHONPATH=src python -m repro_torch.launch.train --full \
       --tiers 2x2:H=2 --sync sparse --omega-impl fused --steps 4
 
-The simulator (``--scenario`` and its flags), observability
-(``--obs-*``, ``--trace-viz``, ``--metrics-out``), measured payload
-accounting with its ``--codec`` and checkpoints are not ported yet and
-raise.
+With ``--scenario`` the run goes through the HCN simulator
+(``repro_torch.sim``): the same train and sync steps on the card, driven
+on a virtual wall clock priced by the wireless model (bit-identical to the
+reference's for the same ``--sim-seed``), with the reference's ``[sim]``
+trailer and ``--trace-out`` JSON; ``--payload-accounting measured
+--codec NAME`` prices the fronthaul with the real sync payloads' codec
+streams:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --scenario paper-fig3 --steps 4 --batch-per-mu 2 --seq 32
+
+The port runs the depth-2 lockstep and deadline scenarios (paper-fig3,
+stragglers, mobility, dropout, fault-dead-cluster, diurnal,
+prate-biased); the others, ``--trace-in``, ``--residency``,
+observability (``--obs-*``, ``--trace-viz``, ``--metrics-out``) and
+checkpoints are not ported yet and raise, naming their ROADMAP item.
+``--layers N`` keeps the first N layers of the architecture (full width
+with ``--full``), so a configuration's state fits a card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import time
 
@@ -37,10 +53,8 @@ from repro_torch.optim import SGDM, warmup_step_decay
 
 # flag -> ROADMAP item that ports it
 _NOT_PORTED = {
-    "scenario": "Queue 1 item 12 (simulator scenarios)",
-    "trace_out": "Queue 1 item 12 (simulator scenarios)",
-    "trace_in": "Queue 1 item 12 (simulator scenarios)",
-    "residency": "Queue 1 item 12 (simulator scenarios)",
+    "trace_in": "Queue 1 item 12 (mobility trace replay, sim/traces.py)",
+    "residency": "Queue 1 item 12 (data residency, ResidencyTracker)",
     "trace_viz": "Queue 1 item 14 (observability)",
     "metrics_out": "Queue 1 item 14 (observability)",
     "obs_heartbeat": "Queue 1 item 14 (observability)",
@@ -78,6 +92,9 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (a depth cut; the width "
+                         "stays the configuration's)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--tiers", default=None,
                     help="hierarchy spec FANOUTS[:H=PERIODS]: fan-outs "
@@ -106,9 +123,16 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=0.25)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--log-every", type=int, default=20)
-    ap.add_argument("--scenario", default=None)
-    ap.add_argument("--sim-seed", type=int, default=0)
-    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--scenario", default=None,
+                    help="run through the HCN simulator: paper-fig3 | "
+                         "stragglers | mobility | dropout | "
+                         "fault-dead-cluster | diurnal | prate-biased (a "
+                         "scenario may pin HFL settings: paper-fig3 pins "
+                         "7 clusters x 4 MUs, H=2 and the paper's φ)")
+    ap.add_argument("--sim-seed", type=int, default=0,
+                    help="fleet/scenario seed (replay is bit-identical)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the wall-clock trace JSON here")
     ap.add_argument("--trace-in", default=None)
     ap.add_argument("--residency", default=None)
     ap.add_argument("--trace-viz", default=None)
@@ -126,22 +150,32 @@ def _wait(dev):
         torch.cuda.synchronize(dev)
 
 
-def run(args, *, on_sync=None) -> dict:
+def _jsonable(obj):
+    """numpy scalars -> python floats/ints so traces dump cleanly."""
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    return obj
+
+
+def run(args, *, on_sync=None, wrap_train_step=None) -> dict:
     """Train as ``args`` says. ``on_sync(index, state, seconds)`` is called
-    after each sync. Returns hist (mean loss per step), eval_loss, timing
-    and the per-sync seconds."""
+    after each sync; ``wrap_train_step(train_step)`` may wrap the train
+    step (an instrumentation hook). Returns hist (mean loss per step),
+    eval_loss, timing, the per-sync seconds and the simulator's trace
+    (None without ``--scenario``)."""
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(ROADMAP {item})")
-    if args.payload_accounting != "analytic":
-        raise SystemExit("--payload-accounting measured is not ported yet: "
-                         "the comm layer is (repro_torch.comm), the simulator "
-                         "that prices with it is ROADMAP Queue 1 item 12")
-    if args.codec != "delta-varint":  # read only by measured accounting
-        raise SystemExit(f"--codec {args.codec} is not ported yet: measured "
-                         "accounting needs the simulator, ROADMAP Queue 1 "
-                         "item 12")
+    scenario = None
+    if args.scenario is not None:
+        from repro_torch.sim.scenarios import apply_hfl_overrides, get_scenario
+
+        scenario = get_scenario(args.scenario)
     dev = resolve(args.device)
     if dev.type == "cuda":  # model math in bf16/f32; never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,6 +184,8 @@ def run(args, *, on_sync=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     given = {f: v for f, v in (("--clusters", args.clusters),
                                ("--mus", args.mus), ("--period", args.period))
              if v is not None}
@@ -162,12 +198,22 @@ def run(args, *, on_sync=None) -> dict:
             f"{args.clusters or 4}x{args.mus or 2}:H={args.period or 4}")
     hfl = HFLConfig(tiers=tiers, sync_mode=args.sync,
                     omega_impl=args.omega_impl, sync_layout=args.sync_layout,
-                    flat_shards=args.flat_shards, wire_format=args.wire_format)
+                    flat_shards=args.flat_shards, wire_format=args.wire_format,
+                    payload_accounting=args.payload_accounting,
+                    codec=args.codec)
+    engine = None
+    if scenario is not None:
+        from repro_torch.sim.scenarios import build_engine
+
+        hfl = apply_hfl_overrides(scenario, hfl)
+        engine = build_engine(scenario, hfl, seed=args.sim_seed)
     N = hfl.num_clusters
     print(f"[train] arch={cfg.name} clusters={N} "
           f"mus/cluster={hfl.mus_per_cluster} H={hfl.tiers[1].period} "
           f"sync={hfl.sync_mode} layout={hfl.sync_layout} "
-          f"omega={hfl.omega_impl} device={dev}", flush=True)
+          f"omega={hfl.omega_impl} device={dev}"
+          + (f" scenario={scenario.name}" if scenario is not None else ""),
+          flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_model(gen, cfg, device=dev)
@@ -178,6 +224,8 @@ def run(args, *, on_sync=None) -> dict:
     state = hfl_init(params, opt, hfl)
     del params
     train_step = make_cluster_train_step(make_loss_fn(cfg), opt, sched)
+    if wrap_train_step is not None:
+        train_step = wrap_train_step(train_step)
     sync_step = make_sync(SyncPlan(hfl))
 
     sync_s = []
@@ -214,8 +262,14 @@ def run(args, *, on_sync=None) -> dict:
             rate = ss if ss is not None else (time.perf_counter() - clock.t0) / clock.steps
             print(f"  step {t+1:5d}  loss {l:.4f}  ({rate:.2f}s/step)", flush=True)
 
-    state = run_hfl(state, train_step, timed_sync, make_batches(),
-                    hfl.tiers[1].period, args.steps, on_step)
+    trace = None
+    if engine is not None:
+        state, trace = engine.run(state, train_step, timed_sync, make_batches(),
+                                  args.steps, on_step=on_step)
+        _sim_trailer(scenario, trace, args.trace_out)
+    else:
+        state = run_hfl(state, train_step, timed_sync, make_batches(),
+                        hfl.tiers[1].period, args.steps, on_step)
 
     timing = clock.summary()
     if timing["steps"]:
@@ -240,7 +294,34 @@ def run(args, *, on_sync=None) -> dict:
         print(f"[train] no training rounds completed; eval-loss={eval_loss:.4f}",
               flush=True)
     return {"hist": hist, "eval_loss": eval_loss, "timing": timing,
-            "sync_s": sync_s}
+            "sync_s": sync_s, "trace": trace}
+
+
+def _sim_trailer(scenario, trace, trace_out) -> None:
+    """The reference's ``[sim]`` lines, and the trace JSON if asked."""
+    m = trace.meta
+    print(f"[sim] scenario={scenario.name} discipline={m['discipline']} "
+          f"residency={m['residency']} "
+          f"virtual-wallclock={trace.wallclock:.3f}s "
+          f"syncs={m['sync_launches']} "
+          f"fronthaul={m['bits_fronthaul_total']/8e6:.2f}MB", flush=True)
+    if m.get("payload_accounting") == "measured":
+        bpp = m.get("bits_per_param_mean")
+        print(f"[sim] measured payloads: codec={m['codec']} "
+              f"Q={m['payload_size']} "
+              f"sbs_ul={m['bits_sbs_ul']/8e6:.3f}MB "
+              f"mbs_dl={m['bits_mbs_dl']/8e6:.3f}MB "
+              + (f"bits/param={bpp:.3f}" if bpp is not None else ""),
+              flush=True)
+    print(f"[sim] t_fl_iter={m['t_fl_iter_s']:.3f}s "
+          f"t_hfl_iter={m['t_hfl_iter_s']:.3f}s "
+          f"t_hfl_period={m['t_hfl_period_s']:.3f}s "
+          f"(period<fl_iter: {m['t_hfl_period_s'] < m['t_fl_iter_s']})",
+          flush=True)
+    if trace_out:
+        with open(trace_out, "w") as f:
+            json.dump(_jsonable(trace.to_json()), f, indent=1)
+        print(f"[sim] trace -> {trace_out}", flush=True)
 
 
 def main(argv=None):
