@@ -38,8 +38,9 @@ nonzero):
      occupancy calculator's clusters at once and the waves they make; and
      ``block_select``, ``update_max``, ``tail_hist`` and ``bitpack`` timed
      at one row of the faithful path's Q with the L2 cache flushed before
-     every launch (the row fits in the 50 MB L2; ``bitpack`` also after a
-     flush that reads, beside the events' own floor);
+     every launch (the row fits in the 50 MB L2), each after a flush that
+     writes and after one that reads (``bitpack`` also beside the events'
+     own floor);
   3. fused selection on a gaussian [2, Q] matrix: ``select_topk_rows``
      (the ``block_select`` pipeline, which must answer it without the
      exact fallback) against the exact stable sort, timed
@@ -73,23 +74,40 @@ nonzero):
      streams through ``bitpack`` equal to numpy's and decoding back,
      ``bitmap_payload`` of the downlink card = CPU, a ``PayloadLedger``
      per codec beside the analytic 32·(1 - φ), ``bitpack`` launched once
-     per kernel-path encode and ``bitmap_payload`` call, and the
-     ``launch.comm_bits`` entry point on the card;
-  7. the simulator's path, three runs through ``repro_torch.launch.train``
+     per kernel-path encode and ``bitmap_payload`` call, the
+     ``launch.comm_bits`` entry point on the card, and the async
+     per-cluster sync (``sim.engine.make_async_sync_step``, sparse
+     downlink, cluster 3) with ``pallas`` and ``fused`` Ω on the card
+     against a CPU copy: w_ref, eps[n], e_dl[n], row n and the device bit
+     counts equal, two launches of each kernel of the impl;
+  7. the simulator's path, six runs through ``repro_torch.launch.train``
      with ``--scenario`` (``sim.scenarios.build_engine`` and
-     ``SimEngine.run``) at full olmo-1b width, 4 steps (2 syncs):
+     ``SimEngine.run``) at full olmo-1b width, 4 steps:
      ``paper-fig3`` (lockstep, 7 x 4 MUs, H = 2, ``FIG3_LAYERS`` layers,
      ``pallas`` Ω, measured accounting with ``delta-varint``),
      ``stragglers`` (deadline, ``2x2:H=2``, full depth, ``fused`` Ω,
-     ``--sim-seed 3``: the deadline drops a straggler) and ``dropout``
+     ``--sim-seed 3``: the deadline drops a straggler), ``dropout``
      (lockstep with participation resampling, ``2x2:H=2``, full depth,
-     ``pallas`` Ω, ``--sim-seed 8``: a cluster sits out each round); each
-     checks the cluster rows identical after every sync, finite losses, a
-     sat-out cluster's params and momentum rows bitwise unchanged by a
-     train step, every kernel's launches against the count the sync and
-     probe imply, and (paper-fig3) the ledger's fronthaul bits against the
-     probe's counts, and prints steady s/step, sync ms, peak memory, the
-     virtual wall-clock and the drops per trace row;
+     ``pallas`` Ω, ``--sim-seed 8``: a cluster sits out each round),
+     ``async`` (``2x2:H=2``, full depth, ``pallas`` Ω, sparse downlink,
+     measured ``delta-varint``), ``trace-replay`` (async over a replayed
+     trace with ``move`` residency, ``2x2:H=2``, full depth, ``fused`` Ω,
+     ``--sim-seed 25``: an MU re-associates within the run) and
+     ``scale-1m`` (async, the live 1.05M-MU fleet behind 7 x 4 slots,
+     ``pallas`` Ω, ``SCALE_LAYERS`` layers); the lockstep/deadline runs
+     check the cluster rows identical after every sync and a sat-out
+     cluster's params and momentum rows bitwise unchanged by a train step;
+     the async runs check every masked step leaves the other clusters'
+     params and momentum rows bitwise unchanged and, after each event's
+     sync, the active row equal to its value before plus the received
+     payload; all check finite losses and every kernel's launches against
+     the count the trace implies, paper-fig3 and async the ledger's
+     fronthaul bits against the probe's (the events') counts, and the
+     residency runs the shards' conservation and a re-association
+     (``scale-1m`` after moving its fleet one 600 s repricing interval
+     on, since the run is shorter); each prints steady s/step, sync ms,
+     peak memory, the virtual wall-clock and the drops (and, async, the
+     staleness and weight) per trace row;
   8. one JSON line listing every ported kernel with its launches on each
      path (and their sum), error, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -126,6 +144,10 @@ SELECT_WARP_SPAN, SELECT_CTA_SPAN = 1024, 8192
 BP_CTAS, BP_CHUNK = 8, 4096
 F_STEPS, F_LR = 8, 0.05  # the paper-exact path: 2 syncs, the example's lr
 FIG3_LAYERS = 6  # paper-fig3's depth cut: 7 clusters' state at full width
+# scale-1m's depth cut: 7 clusters' async state (e_dl included) and the
+# masked-step check's copies of the 6 idle rows pass the card at 6 layers
+SCALE_LAYERS = 4
+TRACE_SEED = 25  # trace-replay: an MU re-associates within the 4 steps
 MAIN_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
              "--log-every", "1", "--device", "cuda"]
@@ -325,6 +347,7 @@ def main(argv):
         from repro_torch.launch import train
         from repro_torch.models.resnet import init_resnet18
         from repro_torch.models.transformer import init_model
+        from repro_torch.sim import engine as E
         from repro_torch.utils import flatten as fl
         from repro_torch.utils.tree import tree_leaves
     except ImportError as exc:
@@ -424,15 +447,19 @@ def main(argv):
             return
         del got
         fn = lambda: DK.update_max(u, v, g, sigma)
-        ms = (cuda_ms(torch, fn, 5) if shape == "olmo-1b"
-              else cuda_ms_cold(torch, fn, 20, flush))
+        extra = {}
+        if shape == "olmo-1b":
+            ms = cuda_ms(torch, fn, 5)
+        else:  # after the writing flush, and after a reading one
+            ms = cuda_ms_cold(torch, fn, 20, flush)
+            extra["ms_clean_l2"] = cuda_ms_cold(torch, fn, 20, flush, dirty=False)
         plain_ms = cuda_ms(torch, lambda: DK.update_max_plain(u, v, g, sigma), 1)
         P = rows * 1024
         # each distinct input read once (the paths pass u and g as ONE zero
         # buffer), u' and v' written once, 3 flops per element
         n_in = len({t.data_ptr() for t in (u, v, g)})
         timed("update_max", shape, ms, plain_ms,
-              4 * P * n_in + 8 * P + 4 * (rows // 256), 3 * P, err, P)
+              4 * P * n_in + 8 * P + 4 * (rows // 256), 3 * P, err, P, **extra)
 
     def check_tail_hist(v, edges, case, shape=None):
         got = DK.tail_hist(v, edges)
@@ -447,12 +474,14 @@ def main(argv):
         fn = lambda: DK.tail_hist(v, edges)
         cold = shape != "olmo-1b"  # one faithful row fits in the L2
         ms = cuda_ms_cold(torch, fn, 20, flush) if cold else cuda_ms(torch, fn, 5)
+        extra = ({"ms_clean_l2": cuda_ms_cold(torch, fn, 20, flush, dirty=False)}
+                 if cold else {})
         split = kernel_split(torch, fn, 10 if cold else 3, flush if cold else None)
         plain_ms = cuda_ms(torch, lambda: DK.tail_hist_plain(v, edges), 1)
         P = v.numel()
         timed("tail_hist", shape, ms, plain_ms, 4 * P + 8 * edges.numel(), 7 * P,
               err, P, data=case, slice_pass_ms=split["slice_hist_kernel"],
-              ordered_sum_ms=split["tile_order_sum_kernel"])
+              ordered_sum_ms=split["tile_order_sum_kernel"], **extra)
 
     def lin_edges(v, bins):
         return sp.linear_edges(v.abs().max(), bins).clamp_min(tiny)
@@ -593,6 +622,8 @@ def main(argv):
         if name == "resnet gradient":  # the faithful path's row and data
             ms = cuda_ms_cold(torch, lambda: FK.block_select(x, th, cap_blk_f, Qf),
                               20, flush)
+            ms_clean = cuda_ms_cold(torch, lambda: FK.block_select(x, th, cap_blk_f, Qf),
+                                    20, flush, dirty=False)
             # the same bytes with no candidate: every slot a pad, the walk's
             # stores predicated off
             ms_none = cuda_ms_cold(torch, lambda: FK.block_select(x, no_th, cap_blk_f,
@@ -602,7 +633,7 @@ def main(argv):
             nb_f = got[2].shape[0]
             timed("block_select", "resnet18", ms, plain_ms,
                   4 * Qf + 8 * nb_f * cap_blk_f + 4 * nb_f + 4, 2 * Qf, 0.0, Qf,
-                  cap_blk=cap_blk_f, no_candidates_ms=ms_none)
+                  cap_blk=cap_blk_f, no_candidates_ms=ms_none, ms_clean_l2=ms_clean)
     del grad, ramp, x, th, got, sent, mask, want_sent, want_mask
     free(torch)
 
@@ -997,6 +1028,46 @@ def main(argv):
     if not (cb["dense_f32_matches_analytic_phi0"]
             and cb["sparse_codecs_beating_analytic_at_0.99"]):
         raise AssertionError("comm_bits: an invariant failed")
+    # the async per-cluster sync (sparse downlink) on that state: the card
+    # against a CPU copy, bit for bit, for both kernel routes
+    n_a, w_a = 3, E.async_weight(2, N_f)
+    edl0 = 0.01 * rand(N_f, Qf)  # a downlink error with every entry set
+    for fn in counters.values():
+        fn.launches = 0
+    async_check = {}
+    for impl, cfg_i in comm_cfg.items():
+        got = {}
+        for where in ("cuda", "cpu"):
+            rows = {b: t.clone() if where == "cuda" else t.cpu()
+                    for b, t in sync_state.items()}
+            step = E.make_async_sync_step(cfg_i, dl_sparse=True, codec="delta-varint")
+            st, e_dl, bits = step(hfl_state(rows), edl0.clone() if where == "cuda"
+                                  else edl0.cpu(), n_a, w_a)
+            got[where] = ([fl.pack(st.w_ref)[0], rows["eps_n"][n_a], e_dl[n_a],
+                           rows["w_tilde_n"][n_a]],
+                          [int(bits[k]) for k in ("sbs_ul", "mbs_dl")])
+            del rows, st, e_dl
+        for what, a, b in zip(("w_ref", "eps[n]", "e_dl[n]", "row n"),
+                              got["cuda"][0], got["cpu"][0]):
+            same_bits(torch, [a.cpu()], [b], f"async sync {impl}: {what}")
+        if got["cuda"][1] != got["cpu"][1]:
+            raise AssertionError(f"async sync {impl}: bits {got['cuda'][1]} on "
+                                 f"the card, {got['cpu'][1]} on the CPU")
+        async_check[impl] = {"bits_sbs_ul_mbs_dl": got["cuda"][1]}
+        del got
+    torch.cuda.synchronize()
+    async_launches = {k: fn.launches for k, fn in counters.items()}
+    want_a = {k: 0 for k in counters}
+    for impl in comm_cfg:  # one uplink and one downlink Ω per sync
+        for k in path_kernels[impl]:
+            want_a[k] = 2
+    if async_launches != want_a:
+        raise AssertionError(f"async sync: launches {async_launches}, want {want_a}")
+    by_path["comm async sync (ResNet-18 sync state)"] = async_launches
+    del edl0
+    emit({"check": "async_sync", "Q": Qf, "clusters": N_f, "cluster": n_a,
+          "weight": w_a, "dl_sparse": True, "card_equals_cpu_bit_patterns": True,
+          "launches": async_launches, **async_check})
     emit({"phase": "comm_path", "Q": Qf, "impls": list(payloads),
           "codecs": names, "payloads_per_probe": N_f + 1,
           "payload_k": [int(v.numel()) for v, _ in payloads["pallas"]],
@@ -1019,54 +1090,106 @@ def main(argv):
     from repro_torch.sim.scenarios import apply_hfl_overrides, get_scenario
 
     t7 = time.perf_counter()
+    two = ["--tiers", f"{N_CLUSTERS}x2:H={PERIOD}"]
     sim_runs = (("paper-fig3", "pallas", ["--layers", str(FIG3_LAYERS),
                                           "--payload-accounting", "measured",
                                           "--codec", "delta-varint"]),
                 # the seeds make the checks bite (the fleet is numpy, the
                 # same on every machine): seed 3 drops a straggler in both
-                # rounds, seed 8 has a cluster sit out each round
-                ("stragglers", "fused", ["--tiers", f"{N_CLUSTERS}x2:H={PERIOD}",
-                                         "--sim-seed", "3"]),
-                ("dropout", "pallas", ["--tiers", f"{N_CLUSTERS}x2:H={PERIOD}",
-                                       "--sim-seed", "8"]))
+                # rounds, seed 8 has a cluster sit out each round, seed 25
+                # re-associates an MU (and moves its shard) within the run
+                ("stragglers", "fused", two + ["--sim-seed", "3"]),
+                ("dropout", "pallas", two + ["--sim-seed", "8"]),
+                ("async", "pallas", two + ["--payload-accounting", "measured",
+                                           "--codec", "delta-varint"]),
+                ("trace-replay", "fused", two + ["--sim-seed", str(TRACE_SEED)]),
+                ("scale-1m", "pallas", ["--layers", str(SCALE_LAYERS)]))
+    as_int = lambda x: x.view(torch.int16 if x.element_size() == 2 else torch.int32)
     for name, impl, extra in sim_runs:
         args = train.parse_args(
             ["--full", "--scenario", name, "--omega-impl", impl, "--batch-per-mu",
              "4", "--seq", "128", "--steps", str(STEPS), "--log-every", "1",
              "--device", "cuda"] + extra)
-        hfl_s = apply_hfl_overrides(get_scenario(name), HFLConfig(
+        scn = get_scenario(name)
+        hfl_s = apply_hfl_overrides(scn, HFLConfig(
             tiers=parse_tiers_spec(args.tiers or "4x2:H=4")))
-        n_s, syncs_s = hfl_s.num_clusters, STEPS // hfl_s.tiers[1].period
+        n_s, H_s = hfl_s.num_clusters, hfl_s.tiers[1].period
+        asyn = scn.sim.discipline == "async"
         measured = args.payload_accounting == "measured"
-        # every sync selects N + 1 rows, and the measured probe selects them
-        # again on scratch copies before it
-        per_sync = (n_s + 1) * (2 if measured else 1)
-        want = {k: 0 for k in counters}
-        for k in path_kernels[impl]:
-            want[k] = per_sync * syncs_s
-        identical, sat_out = [], []
+        identical, sat_out, events, step_s, last = [], [], [], [], {}
 
-        def on_sync(i, state, seconds):
-            identical.append(all(
-                torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
-                for n in range(1, P.shape[0])))
+        def on_sync(i, state, seconds, event=None):
+            if event is None:  # lockstep/deadline: every row is the consensus
+                identical.append(all(
+                    torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
+                    for n in range(1, P.shape[0])))
+                return
+            # async: the active row is w_ref (dense downlink), or its value
+            # after the event's last train step plus the received payload
+            n = event["cluster"]
+            if last["n"] != n:
+                raise AssertionError(f"sim {name}: event of cluster {n} after "
+                                     f"a train step of cluster {last['n']}")
+            leaves = tree_leaves(state.params)
+            if event["downlink"] is None:
+                want = [R.to(P.dtype) for P, R in
+                        zip(leaves, tree_leaves(state.w_ref))]
+            else:
+                dvals, didx = event["downlink"]
+                idx = didx.long()
+                order = torch.argsort(idx)
+                sidx = idx[order]
+                spec_s = fl.spec_of(state.w_ref)
+                bounds = torch.searchsorted(sidx, torch.tensor(
+                    spec_s.offsets + (spec_s.total,), device=dev)).tolist()
+                want = []
+                for i, old in enumerate(last["row"]):
+                    w = old.clone().view(-1)
+                    a, b = bounds[i], bounds[i + 1]
+                    loc = sidx[a:b] - spec_s.offsets[i]
+                    w[loc] = (w[loc].float() + dvals[order[a:b]]).to(w.dtype)
+                    want.append(w.view(old.shape))
+            if not all(torch.equal(as_int(P[n]), as_int(w))
+                       for P, w in zip(leaves, want)):
+                raise AssertionError(f"sim {name}: row {n} after its sync is "
+                                     "not what the downlink sent")
+            events.append({k: event[k] for k in (
+                "cluster", "round", "staleness", "weight", "seconds",
+                "bits_sbs_ul", "bits_mbs_dl")})
 
-        def wrap(step_fn):
+        def unchanged(before, after, what):
+            if not all(torch.equal(as_int(a), as_int(b))
+                       for a, b in zip(after, before)):
+                raise AssertionError(f"sim {name}: {what}")
+
+        def wrap(step_fn):  # lockstep/deadline: sat-out rows stay as they were
             def checked(state, batch, keep=None):
                 out = [] if keep is None else [n for n in range(len(keep))
                                                 if not keep[n]]
                 leaves = tree_leaves(state.params) + tree_leaves(state.opt["m"])
                 before = [P[n].clone() for n in out for P in leaves]
                 state, loss = step_fn(state, batch, keep=keep)
-                after = [P[n] for n in out for P in leaves]
-                if not all(torch.equal(a.view(torch.int16) if a.element_size() == 2
-                                       else a.view(torch.int32),
-                                       b.view(torch.int16) if b.element_size() == 2
-                                       else b.view(torch.int32))
-                           for a, b in zip(after, before)):
-                    raise AssertionError(f"sim {name}: a sat-out cluster's rows "
-                                         "changed in a train step")
+                unchanged(before, [P[n] for n in out for P in leaves],
+                          "a sat-out cluster's rows changed in a train step")
                 sat_out.append(out)
+                return state, loss
+            return checked
+
+        def wrap_masked(step_fn):  # async: only the event's cluster trains
+            def checked(state, batch_n, n):
+                leaves = tree_leaves(state.params) + tree_leaves(state.opt["m"])
+                others = [m for m in range(n_s) if m != n]
+                before = [P[m].clone() for m in others for P in leaves]
+                last.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step_fn(state, batch_n, n)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                unchanged(before, [P[m] for m in others for P in leaves],
+                          "another cluster's rows changed in a masked step")
+                del before
+                last.update(n=n, row=[P[n].clone() for P in tree_leaves(state.params)])
                 return state, loss
             return checked
 
@@ -1074,53 +1197,112 @@ def main(argv):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        out = train.run(args, on_sync=on_sync, wrap_train_step=wrap)
+        out = train.run(args, on_sync=on_sync, wrap_train_step=wrap,
+                        wrap_masked_step=wrap_masked)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        last.clear()
         by_path[f"sim {name} {impl}"] = launches
-        trace = out["trace"]
+        trace, eng = out["trace"], out["engine"]
         meta = trace.meta
         syncs_rows = [r for r in trace.rows if r["kind"] == "sync"]
+        # every sync selects its rows' Ω once: N uplinks + 1 downlink under
+        # lockstep (and the measured probe again before it), 1 + 1 per async
+        # event with the sparse downlink, 1 with the dense one
+        if asyn:
+            per_sync = 1 + int(hfl_s.async_dl_sparse)
+        else:
+            per_sync = (n_s + 1) * (2 if measured else 1)
+        want = {k: 0 for k in counters}
+        for k in path_kernels[impl]:
+            want[k] = per_sync * len(syncs_rows)
         line = {"phase": "sim_path", "scenario": name, "impl": impl,
                 "discipline": meta["discipline"], "accounting": meta["payload_accounting"],
-                "arch": cfg.name, "layers": args.layers or cfg.num_layers,
-                "d_model": cfg.d_model, "clusters": n_s,
-                "mus_per_cluster": hfl_s.mus_per_cluster, "steps": STEPS,
-                "syncs": syncs_s, "sim_seed": args.sim_seed, "losses": out["hist"],
+                "residency": meta["residency"], "arch": cfg.name,
+                "layers": args.layers or cfg.num_layers, "d_model": cfg.d_model,
+                "clusters": n_s, "mus_per_cluster": hfl_s.mus_per_cluster,
+                "fleet_mus": eng.fleet.K, "steps": STEPS, "syncs": len(syncs_rows),
+                "sim_seed": args.sim_seed, "losses": out["hist"],
                 "eval_loss": out["eval_loss"],
                 "steady_s_per_step": out["timing"]["steady_s_per_step"],
                 "first_step_s": out["timing"]["compile_s"],
                 "sync_ms": [1e3 * x for x in out["sync_s"]],
-                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "max_memory_allocated_gb": peak / 1e9,
                 "virtual_wallclock_s": trace.wallclock,
                 "dropped_by_row": [r["dropped"] for r in trace.rows],
-                "deadline_s": [r["deadline_s"] for r in syncs_rows],
-                "sat_out_by_step": sat_out, "launches": launches,
-                "launches_want": want, "rows_identical_after_sync": identical,
-                "card": smi}
+                "launches": launches, "launches_want": want, "card": smi}
+        if asyn:
+            # one on_step per event: the per-step times are the masked
+            # steps' own (device waited on before and after each)
+            line.update(steady_s_per_step=(sum(step_s[1:]) / (len(step_s) - 1)
+                                           if len(step_s) > 1 else None),
+                        first_step_s=step_s[0] if step_s else None,
+                        first_event_s=out["timing"]["compile_s"],
+                        steady_s_per_event=out["timing"]["steady_s_per_step"],
+                        masked_steps=len(step_s),
+                        kinds=[r["kind"] for r in trace.rows], events=events)
+        else:
+            line.update(deadline_s=[r["deadline_s"] for r in syncs_rows],
+                        sat_out_by_step=sat_out, rows_identical_after_sync=identical)
         if measured:
             line["ledger"] = {k: meta[k] for k in (
                 "codec", "payload_size", "bits_sbs_ul", "bits_mbs_dl",
                 "events_sbs_ul", "events_mbs_dl", "bits_per_param_mean")}
+        if eng.residency is not None:
+            # shards conserved; MUs whose cluster changed since the start
+            eng.residency.check_conservation()
+            line["reassociated"] = int((eng.residency.home != eng.fleet.cid).sum())
+            if name == "scale-1m":
+                # the run is shorter than the 600 virtual s between
+                # repricings: move the fleet one interval on, as a longer
+                # run would, and hold the 1.05M shards to conservation
+                t_mv = time.perf_counter()
+                eng._advance_fleet(eng.sim.reprice_interval_s)
+                eng.residency.check_conservation()
+                line["reassociated_after_one_interval"] = int(
+                    (eng.residency.home != eng.fleet.cid).sum())
+                line["reprice_interval_host_s"] = time.perf_counter() - t_mv
         emit(line)
         if launches != want:
             raise AssertionError(f"sim {name}: launches {launches}, want {want}")
-        if not (len(identical) == syncs_s and all(identical)):
-            raise AssertionError(f"sim {name}: cluster rows differ after a sync")
         if not (math.isfinite(out["eval_loss"])
                 and all(math.isfinite(l) for l in out["hist"])):
             raise AssertionError(f"sim {name}: non-finite loss")
-        if len(sat_out) != STEPS or (name == "dropout" and not any(sat_out)):
-            raise AssertionError(f"sim {name}: sat-out steps {sat_out}")
-        if name == "stragglers" and not any(r["dropped"] for r in trace.rows):
-            raise AssertionError("sim stragglers: the deadline dropped no MU")
-        if measured:  # the ledger's fronthaul = the probe's host counts
-            if not (meta["bits_sbs_ul"] == sum(r["bits_sbs_ul"] for r in syncs_rows)
-                    and meta["bits_mbs_dl"] == sum(r["bits_mbs_dl"] for r in syncs_rows)
-                    and meta["events_sbs_ul"] == n_s * syncs_s
-                    and meta["events_mbs_dl"] == syncs_s):
-                raise AssertionError(f"sim {name}: ledger and probe counts differ")
-        del out, trace
+        if asyn:
+            rounds = STEPS // H_s
+            if not (len(events) == len(syncs_rows) > 0
+                    and len(trace.rows) == n_s * rounds
+                    and len(step_s) == H_s * len(syncs_rows)):
+                raise AssertionError(f"sim {name}: {len(events)} events, "
+                                     f"{len(step_s)} masked steps, rows {line['kinds']}")
+            if name == "async" and len(syncs_rows) != n_s * rounds:
+                raise AssertionError(f"sim async: {len(syncs_rows)} syncs")
+            if measured:  # the ledger's fronthaul = the events' own counts
+                if not (meta["bits_sbs_ul"] == sum(e["bits_sbs_ul"] for e in events)
+                        and meta["bits_mbs_dl"] == sum(e["bits_mbs_dl"] for e in events)
+                        and meta["events_sbs_ul"] == meta["events_mbs_dl"]
+                        == len(events)):
+                    raise AssertionError(f"sim {name}: ledger and event counts differ")
+        else:
+            if not (len(identical) == len(syncs_rows) == STEPS // H_s
+                    and all(identical)):
+                raise AssertionError(f"sim {name}: cluster rows differ after a sync")
+            if len(sat_out) != STEPS or (name == "dropout" and not any(sat_out)):
+                raise AssertionError(f"sim {name}: sat-out steps {sat_out}")
+            if name == "stragglers" and not any(r["dropped"] for r in trace.rows):
+                raise AssertionError("sim stragglers: the deadline dropped no MU")
+            if measured:  # the ledger's fronthaul = the probe's host counts
+                if not (meta["bits_sbs_ul"] == sum(r["bits_sbs_ul"] for r in syncs_rows)
+                        and meta["bits_mbs_dl"] == sum(r["bits_mbs_dl"] for r in syncs_rows)
+                        and meta["events_sbs_ul"] == n_s * len(syncs_rows)
+                        and meta["events_mbs_dl"] == len(syncs_rows)):
+                    raise AssertionError(f"sim {name}: ledger and probe counts differ")
+        if name == "trace-replay" and not line["reassociated"]:
+            raise AssertionError("sim trace-replay: no MU re-associated")
+        if name == "scale-1m" and not line["reassociated_after_one_interval"]:
+            raise AssertionError("sim scale-1m: no MU re-associated in an interval")
+        del out, trace, eng
     emit({"phase": "sim_path_done", "seconds": time.perf_counter() - t7})
     free(torch)
 

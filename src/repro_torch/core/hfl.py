@@ -1,7 +1,8 @@
 """Hierarchical FL engine, depth 2, single process (``repro.core.hfl``).
 
   * ``make_cluster_train_step``: one intra-cluster iteration for each of
-    the N clusters (a loop over clusters replaces ``vmap``).
+    the N clusters (a loop over clusters replaces ``vmap``);
+    ``make_masked_cluster_train_step`` the same for one cluster n.
   * ``make_sync``: the every-H inter-cluster consensus (Alg. 5 l.22-39):
     ``dense`` model averaging, or the paper's ``sparse`` whole-vector Ω
     with β-discounted error feedback up and down (``quantized_sparse``
@@ -52,7 +53,10 @@ def hfl_init(params_single, optimizer, hfl_cfg, *, buffer_dtype=torch.float32):
     N = hfl_cfg.num_clusters
     rep = tree_map(lambda p: p.unsqueeze(0).repeat((N,) + (1,) * p.dim()),
                    params_single)
-    opt = optimizer.init(rep)
+    # per-cluster counters (AdamW's t): the reference vmaps init, so a
+    # scalar of the single model's state becomes one entry per cluster
+    opt = {k: (v.repeat(N) if torch.is_tensor(v) and v.dim() == 0 else v)
+           for k, v in optimizer.init(rep).items()}
     spec = fl.spec_of(params_single)
     dev = tree_leaves(params_single)[0].device
     wref_buf, w_ref = fl.flat_backed_zeros(spec, None, buffer_dtype, dev)
@@ -77,6 +81,22 @@ def _row(tree, n):
     return tree_map(lambda t: t[n] if torch.is_tensor(t) else t, tree)
 
 
+def _train_row(state: HFLState, n: int, batch_n, loss_fn, optimizer, lr):
+    """One iteration of cluster n, in place: its params and optimizer row
+    (AdamW's ``t[n]`` included) are updated; -> the loss (detached)."""
+    p_n = _row(state.params, n)
+    leaves, treedef = tree_flatten(p_n)
+    req = [l.detach().requires_grad_(True) for l in leaves]
+    with torch.enable_grad():
+        loss, _aux = loss_fn(tree_unflatten(treedef, req), batch_n)
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+    # unused leaves (the norm placeholders) get zero grads, as in jax
+    grads = [torch.zeros_like(r) if g is None else g
+             for g, r in zip(grads, req)]
+    optimizer.update(tree_unflatten(treedef, grads), _row(state.opt, n), p_n, lr)
+    return loss.detach()
+
+
 def make_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
     """loss_fn(params, batch) -> (loss, aux); batch leaves [N, localB, ...].
     Returns ``train_step(state, batch, keep=None) -> (state, losses [N])``;
@@ -84,38 +104,39 @@ def make_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
 
     ``keep`` (bool [N], the simulator's participation): a cluster with
     ``keep[n]`` False sat the round out. Its loss is computed and counted,
-    its params and optimizer rows stay as they were, and ``step`` advances:
-    the reference's vmapped step followed by ``sim.engine._merge_clusters``.
+    its params and optimizer rows (AdamW's ``t[n]`` too) stay as they were,
+    and ``step`` advances: the reference's vmapped step followed by
+    ``sim.engine._merge_clusters``.
     """
 
     def train_step(state: HFLState, batch, keep=None):
         lr = lr_schedule(state.step)
         N = tree_leaves(state.params)[0].shape[0]
-        losses, opt_n = [], None
+        losses = []
         for n in range(N):
-            p_n = _row(state.params, n)
             if keep is not None and not keep[n]:
                 with torch.no_grad():
-                    loss, _aux = loss_fn(p_n, _row(batch, n))
+                    loss, _aux = loss_fn(_row(state.params, n), _row(batch, n))
                 losses.append(loss.detach())
                 continue
-            leaves, treedef = tree_flatten(p_n)
-            req = [l.detach().requires_grad_(True) for l in leaves]
-            with torch.enable_grad():
-                loss, _aux = loss_fn(tree_unflatten(treedef, req), _row(batch, n))
-                grads = torch.autograd.grad(loss, req, allow_unused=True)
-            # unused leaves (the norm placeholders) get zero grads, as in jax
-            grads = [torch.zeros_like(r) if g is None else g
-                     for g, r in zip(grads, req)]
-            _, opt_n = optimizer.update(tree_unflatten(treedef, grads),
-                                        _row(state.opt, n), p_n, lr)
-            losses.append(loss.detach())
-        # host-side counters (AdamW's t, one for all clusters) advance once
-        # per step in which some cluster trained
-        opt = dict(state.opt)
-        opt.update({k: v for k, v in (opt_n or {}).items()
-                    if not isinstance(v, (dict, torch.Tensor))})
-        return state._replace(opt=opt, step=state.step + 1), torch.stack(losses)
+            losses.append(_train_row(state, n, _row(batch, n), loss_fn,
+                                     optimizer, lr))
+        return state._replace(step=state.step + 1), torch.stack(losses)
+
+    return train_step
+
+
+def make_masked_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
+    """One iteration of ONE cluster (``repro.core.hfl``'s masked step, the
+    async disciplines' train step): ``train_step(state, batch_n, n) ->
+    (state, loss scalar)`` with ``batch_n`` leaves a single cluster's rows
+    ``[localB, ...]``. Row n's params and optimizer state are updated in
+    place; every other row stays bitwise as it was; ``step`` advances."""
+
+    def train_step(state: HFLState, batch_n, n: int):
+        lr = lr_schedule(state.step)
+        loss = _train_row(state, int(n), batch_n, loss_fn, optimizer, lr)
+        return state._replace(step=state.step + 1), loss
 
     return train_step
 
@@ -152,13 +173,14 @@ def _f32_buffer(tree, spec, rows=None):
     return fl.pack(tree)[0] if rows is None else fl.pack_stacked(tree)[0]
 
 
-def _pack_drift(s, params, wref, beta_up: float, spec):
+def _pack_drift(s, params, wref, beta_up: float, spec, rows=None):
     """s [N, Q] holds eps; leave fma(β_s, eps, w_n - w_ref) in it, leaf by
-    leaf and row by row: the reference's ``_pack_drift`` as XLA compiles
-    it (one fused multiply-add, ``utils.fp``)."""
+    leaf and row by row (only ``rows`` when given): the reference's
+    ``_pack_drift`` as XLA compiles it (one fused multiply-add,
+    ``utils.fp``)."""
     for i, P in enumerate(tree_leaves(params)):
         sl = spec.leaf_slice(i)
-        for n in range(P.shape[0]):
+        for n in (range(P.shape[0]) if rows is None else rows):
             d = P[n].reshape(-1).float() - wref[sl]
             s[n, sl] = axpy_(d, beta_up, s[n, sl])
 

@@ -1,7 +1,7 @@
 """H-period orchestration (Alg. 5): the lockstep loop of ``repro.core.
 schedule.run_hfl`` without the simulator, with the reference engine's call
 order: train, then sync at period boundaries, then ``on_step``. The
-simulator and its scenarios wait for ROADMAP Queue 1 item 12."""
+simulator's scenarios run through ``repro_torch.sim`` instead."""
 from __future__ import annotations
 
 from typing import Callable, Iterable, Optional

@@ -21,11 +21,20 @@ streams:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --scenario paper-fig3 --steps 4 --batch-per-mu 2 --seq 32
 
-The port runs the depth-2 lockstep and deadline scenarios (paper-fig3,
-stragglers, mobility, dropout, fault-dead-cluster, diurnal,
-prate-biased); the others, ``--trace-in``, ``--residency``,
-observability (``--obs-*``, ``--trace-viz``, ``--metrics-out``) and
-checkpoints are not ported yet and raise, naming their ROADMAP item.
+The port runs every depth-2 scenario: the lockstep and deadline ones,
+the async ones (``async``, ``trace-replay``, ``flash-crowd``,
+``scale-1m``, ``scale-100k``; each event trains one cluster through
+``make_masked_cluster_train_step``) and ``manhattan``; ``--trace-in``
+replays a mobility trace file (CSV/JSONL, the README's schema) and
+``--residency move|duplicate|stale`` attaches the data-residency tracker:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --scenario trace-replay --trace-in trace.csv --residency move \
+      --steps 4 --batch-per-mu 2 --seq 32
+
+The depth-3 scenarios (``hier-3tier``, ``hier-deadline``), observability
+(``--obs-*``, ``--trace-viz``, ``--metrics-out``) and checkpoints are not
+ported yet and raise, naming their ROADMAP item.
 ``--layers N`` keeps the first N layers of the architecture (full width
 with ``--full``), so a configuration's state fits a card.
 """
@@ -42,7 +51,8 @@ import torch
 
 from repro_torch.configs import HFLConfig, get_config, parse_tiers_spec
 from repro_torch.core.hfl import (
-    SyncPlan, hfl_init, make_cluster_train_step, make_sync, serving_params,
+    SyncPlan, hfl_init, make_cluster_train_step,
+    make_masked_cluster_train_step, make_sync, serving_params,
 )
 from repro_torch.core.schedule import run_hfl
 from repro_torch.data import SyntheticLM
@@ -53,8 +63,6 @@ from repro_torch.optim import SGDM, warmup_step_decay
 
 # flag -> ROADMAP item that ports it
 _NOT_PORTED = {
-    "trace_in": "Queue 1 item 12 (mobility trace replay, sim/traces.py)",
-    "residency": "Queue 1 item 12 (data residency, ResidencyTracker)",
     "trace_viz": "Queue 1 item 14 (observability)",
     "metrics_out": "Queue 1 item 14 (observability)",
     "obs_heartbeat": "Queue 1 item 14 (observability)",
@@ -125,16 +133,22 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=20)
     ap.add_argument("--scenario", default=None,
                     help="run through the HCN simulator: paper-fig3 | "
-                         "stragglers | mobility | dropout | "
-                         "fault-dead-cluster | diurnal | prate-biased (a "
-                         "scenario may pin HFL settings: paper-fig3 pins "
-                         "7 clusters x 4 MUs, H=2 and the paper's φ)")
+                         "stragglers | mobility | dropout | async | "
+                         "trace-replay | manhattan | fault-dead-cluster | "
+                         "diurnal | flash-crowd | scale-1m | prate-biased "
+                         "(a scenario may pin HFL settings: paper-fig3 "
+                         "pins 7 clusters x 4 MUs, H=2 and the paper's φ)")
     ap.add_argument("--sim-seed", type=int, default=0,
                     help="fleet/scenario seed (replay is bit-identical)")
     ap.add_argument("--trace-out", default=None,
                     help="write the wall-clock trace JSON here")
-    ap.add_argument("--trace-in", default=None)
-    ap.add_argument("--residency", default=None)
+    ap.add_argument("--trace-in", default=None,
+                    help="replay this mobility trace (CSV/JSONL: t,mu_id,x,y) "
+                         "instead of the scenario's mobility model")
+    ap.add_argument("--residency", default=None,
+                    choices=["static", "move", "duplicate", "stale"],
+                    help="data residency policy as MUs re-associate "
+                         "(overrides the scenario's)")
     ap.add_argument("--trace-viz", default=None)
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--obs-heartbeat", type=int, default=0)
@@ -161,12 +175,18 @@ def _jsonable(obj):
     return obj
 
 
-def run(args, *, on_sync=None, wrap_train_step=None) -> dict:
+def run(args, *, on_sync=None, wrap_train_step=None,
+        wrap_masked_step=None) -> dict:
     """Train as ``args`` says. ``on_sync(index, state, seconds)`` is called
-    after each sync; ``wrap_train_step(train_step)`` may wrap the train
-    step (an instrumentation hook). Returns hist (mean loss per step),
-    eval_loss, timing, the per-sync seconds and the simulator's trace
-    (None without ``--scenario``)."""
+    after each sync; under an async scenario it is called after each
+    event's per-cluster sync with the engine's event dict as a fourth
+    argument (cluster, round, staleness, weight and the sent uplink/
+    downlink payloads, ``SimEngine.run``'s ``on_async_sync``).
+    ``wrap_train_step(train_step)`` and ``wrap_masked_step(masked_step)``
+    may wrap the all-cluster and the one-cluster train step
+    (instrumentation hooks). Returns hist (mean loss per step; the active
+    cluster's per async event), eval_loss, timing, the per-sync seconds
+    and the simulator's trace and engine (None without ``--scenario``)."""
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
@@ -206,7 +226,9 @@ def run(args, *, on_sync=None, wrap_train_step=None) -> dict:
         from repro_torch.sim.scenarios import build_engine
 
         hfl = apply_hfl_overrides(scenario, hfl)
-        engine = build_engine(scenario, hfl, seed=args.sim_seed)
+        engine = build_engine(scenario, hfl, seed=args.sim_seed,
+                              trace_file=args.trace_in,
+                              residency=args.residency)
     N = hfl.num_clusters
     print(f"[train] arch={cfg.name} clusters={N} "
           f"mus/cluster={hfl.mus_per_cluster} H={hfl.tiers[1].period} "
@@ -223,9 +245,14 @@ def run(args, *, on_sync=None, wrap_train_step=None) -> dict:
                               decay_steps=(args.steps // 2, 3 * args.steps // 4))
     state = hfl_init(params, opt, hfl)
     del params
-    train_step = make_cluster_train_step(make_loss_fn(cfg), opt, sched)
+    loss_fn = make_loss_fn(cfg)
+    train_step = make_cluster_train_step(loss_fn, opt, sched)
     if wrap_train_step is not None:
         train_step = wrap_train_step(train_step)
+    # async rounds advance ONE cluster: the masked step trains only it
+    masked_step = make_masked_cluster_train_step(loss_fn, opt, sched)
+    if wrap_masked_step is not None:
+        masked_step = wrap_masked_step(masked_step)
     sync_step = make_sync(SyncPlan(hfl))
 
     sync_s = []
@@ -262,10 +289,17 @@ def run(args, *, on_sync=None, wrap_train_step=None) -> dict:
             rate = ss if ss is not None else (time.perf_counter() - clock.t0) / clock.steps
             print(f"  step {t+1:5d}  loss {l:.4f}  ({rate:.2f}s/step)", flush=True)
 
+    def async_synced(event, st):
+        sync_s.append(event["seconds"])
+        if on_sync is not None:
+            on_sync(len(sync_s), st, sync_s[-1], event)
+
     trace = None
     if engine is not None:
         state, trace = engine.run(state, train_step, timed_sync, make_batches(),
-                                  args.steps, on_step=on_step)
+                                  args.steps, on_step=on_step,
+                                  masked_train_step=masked_step,
+                                  on_async_sync=async_synced)
         _sim_trailer(scenario, trace, args.trace_out)
     else:
         state = run_hfl(state, train_step, timed_sync, make_batches(),
@@ -294,7 +328,7 @@ def run(args, *, on_sync=None, wrap_train_step=None) -> dict:
         print(f"[train] no training rounds completed; eval-loss={eval_loss:.4f}",
               flush=True)
     return {"hist": hist, "eval_loss": eval_loss, "timing": timing,
-            "sync_s": sync_s, "trace": trace}
+            "sync_s": sync_s, "trace": trace, "engine": engine}
 
 
 def _sim_trailer(scenario, trace, trace_out) -> None:

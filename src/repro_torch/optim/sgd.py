@@ -8,7 +8,11 @@ reference), each update cast back to the param's dtype.
 
 ``update`` works IN PLACE: the param and moment tensors are overwritten
 and returned (the reference's jitted step donates them instead), so a
-full-size model holds one copy of its optimizer state.
+full-size model holds one copy of its optimizer state. AdamW's step
+counter ``t`` is an int64 CPU tensor, advanced in place too: 0-d for one
+model, [N] per cluster in an ``HFLState`` (``core.hfl.hfl_init`` widens it
+as the reference's vmapped ``init`` does), where each cluster's update
+advances only its own entry.
 """
 from __future__ import annotations
 
@@ -55,13 +59,16 @@ class AdamW:
 
     def init(self, params):
         z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return {"m": tree_map(z, params), "v": tree_map(z, params), "t": 0}
+        return {"m": tree_map(z, params), "v": tree_map(z, params),
+                "t": torch.zeros((), dtype=torch.int64)}
 
     @torch.no_grad()
     def update(self, grads, state, params, lr):
-        t = state["t"] + 1
-        c1 = 1.0 - float(torch.tensor(self.b1) ** t)
-        c2 = 1.0 - float(torch.tensor(self.b2) ** t)
+        state["t"] += 1  # a view of one cluster's entry advances only it
+        t = int(state["t"])
+        # the bias corrections in f32, as the reference's 1 - b ** f32(t)
+        c1 = float(1.0 - torch.tensor(self.b1) ** t)
+        c2 = float(1.0 - torch.tensor(self.b2) ** t)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"]), tree_leaves(params)):
             g = g.float()
@@ -71,4 +78,4 @@ class AdamW:
             if self.weight_decay:
                 step = step + (self.weight_decay * p.float() if p.ndim >= 2 else 0.0)
             p.copy_((p.float() - lr * step).to(p.dtype))
-        return params, {"m": state["m"], "v": state["v"], "t": t}
+        return params, state

@@ -1,7 +1,5 @@
 """The port's copy of ``repro.sim.devices`` (numpy only, the same RNG
-stream and draw order, so a fleet replays bit-identically). Trace replay
-(``trace=``) is not ported yet: it raises (ROADMAP Queue 1 item 12, with
-``sim/traces.py``).
+stream and draw order, so a fleet replays bit-identically).
 
 Per-device runtime models: compute speed, availability, mobility.
 
@@ -77,8 +75,10 @@ class DeviceFleet:
         virtual time (0 = flat availability, the legacy behavior):
         ``p(t) = clip(dropout * (1 + amp * sin(2pi (t/period + phase))), 0, 1)``.
     speed_mps : random-waypoint speed; 0 = static users (paper setting).
-    trace : a ``sim.traces.MobilityTrace`` to replay instead of the
-        waypoint model: not ported yet, raises.
+    trace : a ``sim.traces.MobilityTrace`` to REPLAY instead of the
+        waypoint model (mutually exclusive with ``speed_mps > 0``). Its K
+        must match the topology's MU count; initial positions and
+        cluster association come from the trace at t=0.
     """
 
     def __init__(
@@ -106,11 +106,15 @@ class DeviceFleet:
         self.diurnal_phase = float(diurnal_phase)
         self.speed_mps = float(speed_mps)
         self._cluster_cache = None
+        self.trace = trace
+        self._trace_t = 0.0
         if trace is not None:
-            raise NotImplementedError(
-                "mobility trace replay is not ported yet: ROADMAP Queue 1 "
-                "item 12 (sim/traces.py)")
-        self.trace = None
+            assert speed_mps == 0.0, \
+                "trace replay and the waypoint integrator are exclusive"
+            assert trace.K == self.K, \
+                f"trace has {trace.K} MUs but the topology drops {self.K}"
+            self.pos = trace.at(0.0)
+            self.reassociate()
         if compute_mult is not None:
             self.compute_mult = np.asarray(compute_mult, np.float64)
             assert self.compute_mult.shape == (self.K,)
@@ -156,20 +160,27 @@ class DeviceFleet:
 
     @property
     def mobile(self) -> bool:
-        """True when positions change over time (the waypoint model)."""
-        return self.speed_mps > 0
+        """True when positions change over time (waypoint or trace replay)."""
+        return self.speed_mps > 0 or self.trace is not None
 
     def _draw_waypoints(self, n: int) -> np.ndarray:
         """Uniform waypoints in the HCN disk (random-waypoint model)."""
         return uniform_disk(self.rng, n, self.topo.area_radius)
 
     def advance(self, dt: float) -> None:
-        """Move every MU ``dt`` virtual seconds toward its waypoint.
+        """Move every MU ``dt`` virtual seconds toward its waypoint — or,
+        under trace replay, read positions off the recorded trajectory at
+        the fleet's accumulated virtual time.
 
         An MU that reaches its waypoint inside ``dt`` draws a fresh one and
         keeps moving with the leftover time budget (classic random waypoint,
         zero pause time).
         """
+        if self.trace is not None:
+            if dt > 0:
+                self._trace_t += dt
+                self.pos = self.trace.at(self._trace_t)
+            return
         if self.speed_mps <= 0 or dt <= 0:
             return
         budget = np.full(self.K, dt * self.speed_mps)  # metres left to move

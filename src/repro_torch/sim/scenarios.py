@@ -1,13 +1,9 @@
 """Named scenario registry for the HCN simulator: the port of
 ``repro.sim.scenarios``, the whole registry copied.
 
-The port runs the depth-2 synchronous scenarios: ``paper-fig3``,
-``stragglers``, ``mobility``, ``dropout``, ``fault-dead-cluster``,
-``diurnal`` and ``prate-biased``. ``build_engine`` raises for the others,
-naming the ROADMAP item that ports what they need: ``async``,
-``trace-replay``, ``manhattan``, ``flash-crowd``, ``scale-1m`` and
-``scale-100k`` (Queue 1 item 12: the async discipline, mobility traces,
-data residency) and ``hier-3tier``, ``hier-deadline`` (item 13: depth > 2).
+The port runs every depth-2 scenario. ``build_engine`` raises for the
+two depth-3 ones, ``hier-3tier`` and ``hier-deadline``, naming the ROADMAP
+item that ports what they need (Queue 1 item 13: depth > 2).
 
 Each scenario bundles a ``SimConfig`` (fleet + discipline knobs) with the
 ``HFLConfig`` overrides that make it meaningful, so
@@ -77,6 +73,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.configs.base import HFLConfig, SimConfig
+from repro_torch.data.federated import ResidencyTracker
 from repro_torch.sim.devices import DeviceFleet
 from repro_torch.sim.engine import SimEngine
 from repro_torch.wireless.latency import LatencyParams
@@ -310,17 +307,30 @@ def unported(sim: SimConfig, hfl_cfg: HFLConfig) -> Optional[str]:
     if len(hfl_cfg.tiers) > 2:
         return ("depth > 2 hierarchies in the simulator (the tiered sync, "
                 "_run_units) are not ported yet: ROADMAP Queue 1 item 13")
-    if sim.trace_file is not None or sim.trace_model is not None:
-        return ("mobility trace replay (sim/traces.py) is not ported yet: "
-                "ROADMAP Queue 1 item 12")
-    if sim.residency != "static" or sim.fleet_mus_per_cluster:
-        return ("data residency (data.federated.ResidencyTracker, "
-                "_slot_sources/_gather_batch) and oversubscribed fleets are "
-                "not ported yet: ROADMAP Queue 1 item 12")
-    if sim.discipline == "async":
-        return ("the async discipline (_run_async, make_async_sync_step, "
-                "init_dl_error, the masked train step) is not ported yet: "
-                "ROADMAP Queue 1 item 12")
+    return None
+
+
+def build_trace(sim: SimConfig, n_mus: int, topo: HCNTopology):
+    """Mobility trace for a scenario: load ``trace_file`` if set, else run
+    the named synthetic generator; None when the scenario has neither.
+    ``n_mus`` is the FLEET's MU count (which exceeds the training slots
+    when ``fleet_mus_per_cluster`` oversubscribes)."""
+    from repro_torch.sim import traces as tr
+
+    if sim.trace_file is not None:
+        trace = tr.MobilityTrace.load(sim.trace_file)
+        if trace.K != n_mus:
+            raise ValueError(
+                f"trace {sim.trace_file} has {trace.K} MUs but the fleet "
+                f"needs {n_mus}")
+        return trace
+    if sim.trace_model is not None:
+        return tr.generate(
+            sim.trace_model, n_mus, sim.trace_duration_s,
+            radius=topo.area_radius, seed=sim.seed,
+            speed_mps=sim.trace_speed_mps if sim.trace_speed_mps > 0 else None,
+            dt=sim.trace_dt_s,
+        )
     return None
 
 
@@ -330,27 +340,52 @@ def build_engine(
     *,
     lp: Optional[LatencyParams] = None,
     seed: Optional[int] = None,
+    trace_file: Optional[str] = None,
+    residency: Optional[str] = None,
 ) -> SimEngine:
-    """Topology + fleet + engine for a training scenario; ``seed``
-    overrides the scenario's (``--sim-seed``). What the port does not run
-    yet raises (``unported``); so do the reference's ``--trace-in`` and
-    ``--residency`` hooks, in the train CLI."""
+    """Topology + fleet (+ mobility trace + residency tracker) + engine
+    for a training scenario. ``seed``/``trace_file``/``residency``
+    override the scenario's ``SimConfig`` (the train CLI's
+    ``--sim-seed``/``--trace-in``/``--residency``). What the port does not
+    run yet raises (``unported``)."""
     assert scn.kind == "train", f"{scn.name} is a sampling scenario"
-    sim = scn.sim if seed is None else dataclasses.replace(scn.sim, seed=seed)
+    sim = scn.sim
+    over = {}
+    if seed is not None:
+        over["seed"] = seed
+    if trace_file is not None:
+        over["trace_file"] = trace_file
+        over["trace_model"] = None
+    if residency is not None:
+        over["residency"] = residency
+    if over:
+        sim = dataclasses.replace(sim, **over)
     why = unported(sim, hfl_cfg)
     if why is not None:
         raise NotImplementedError(f"scenario {scn.name!r}: {why}")
+    if (sim.trace_file or sim.trace_model) and sim.speed_mps > 0:
+        # replay REPLACES the waypoint integrator: --trace-in on a scenario
+        # with built-in mobility silences its speed_mps
+        sim = dataclasses.replace(sim, speed_mps=0.0)
     topo = HCNTopology(num_clusters=hfl_cfg.num_clusters, seed=sim.seed)
+    # the fleet may oversubscribe the training slots (fleet-scale runs)
+    fleet_mpc = sim.fleet_mus_per_cluster or hfl_cfg.mus_per_cluster
+    trace = build_trace(sim, hfl_cfg.num_clusters * fleet_mpc, topo)
     fleet = DeviceFleet(
-        topo, hfl_cfg.mus_per_cluster,
+        topo, fleet_mpc,
         compute_sigma=sim.compute_sigma, dropout=sim.dropout,
         diurnal_amp=sim.diurnal_amp, diurnal_period_s=sim.diurnal_period_s,
         diurnal_phase=sim.diurnal_phase,
-        speed_mps=sim.speed_mps, seed=sim.seed,
+        speed_mps=sim.speed_mps, seed=sim.seed, trace=trace,
     )
+    tracker = None
+    if sim.residency != "static":
+        tracker = ResidencyTracker(fleet.cid, hfl_cfg.num_clusters,
+                                   policy=sim.residency)
     return SimEngine(
         period=hfl_cfg.tiers[1].period, hfl_cfg=hfl_cfg, sim_cfg=sim,
         topo=topo, fleet=fleet, lp=lp if lp is not None else LatencyParams(),
+        residency=tracker,
     )
 
 

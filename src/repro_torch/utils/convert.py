@@ -50,7 +50,10 @@ def state_from_numpy(state, device="cuda") -> HFLState:
     conv = lambda t: params_from_numpy(t, dev)
     params = conv(s["params"])
     N = tree_leaves(params)[0].shape[0]
-    opt = {k: (conv(v) if isinstance(v, dict) else int(np.asarray(v).reshape(-1)[0]))
+    # moment trees go to ``device``; counters (AdamW's int32 t [N]) stay
+    # per cluster, as int64 on the CPU
+    opt = {k: (conv(v) if isinstance(v, dict)
+               else torch.from_numpy(np.asarray(v).astype(np.int64)))
            for k, v in s["opt"].items()}
     return HFLState(
         params=params,

@@ -65,6 +65,8 @@ def test_cuda_entry_points_raise_without_a_card():
         resolve()
     with pytest.raises(RuntimeError, match="CUDA"):
         train.run(train.parse_args(["--steps", "1"]))  # --device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):  # an async scenario too
+        train.run(train.parse_args(["--scenario", "async", "--steps", "2"]))
     cfg = get_config("olmo-1b").reduced()
     with pytest.raises(RuntimeError, match="CUDA"):
         init_model(torch.Generator().manual_seed(0), cfg)
@@ -140,12 +142,12 @@ def test_unported_flags_raise():
     from repro_torch.launch import train
 
     for argv in (["--obs-health"], ["--trace-viz", "x.json"],
-                 ["--trace-in", "x.csv"], ["--residency", "move"]):
+                 ["--metrics-out", "m.jsonl"], ["--ckpt-dir", "ckpt"]):
         with pytest.raises(SystemExit, match="not ported"):
             train.run(train.parse_args(argv + ["--device", "cpu"]))
     # a scenario the port does not run yet names its ROADMAP item
     with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP"):
-        train.run(train.parse_args(["--scenario", "async", "--device", "cpu"]))
+        train.run(train.parse_args(["--scenario", "hier-3tier", "--device", "cpu"]))
 
 
 def test_kernel_wrappers_check_their_operands():

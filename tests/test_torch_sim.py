@@ -66,10 +66,7 @@ NARROW = dict(d_model=64, num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128,
               vocab_size=128)
 PORTED = ("paper-fig3", "stragglers", "mobility", "dropout",
           "fault-dead-cluster", "diurnal", "prate-biased")
-UNPORTED = {"async": "item 12", "trace-replay": "item 12", "manhattan": "item 12",
-            "flash-crowd": "item 12", "scale-1m": "item 12",
-            "scale-100k": "item 12", "hier-3tier": "item 13",
-            "hier-deadline": "item 13"}
+UNPORTED = {"hier-3tier": "item 13", "hier-deadline": "item 13"}
 VIRTUAL = ("kind", "t", "step", "iter_s", "sync_s", "dropped", "deadline_s",
            "bits_sbs_ul", "bits_mbs_dl", "bits_sync_bcast")
 
@@ -85,11 +82,17 @@ def _flat(leaves):
     return np.concatenate([np.asarray(x, np.float32).ravel() for x in leaves])
 
 
-def _run_both(name, *, accounting="analytic", codec="delta-varint", seed=0):
+def _run_both(name, *, accounting="analytic", codec="delta-varint", seed=0,
+              masked=False, dtype=None, row_gaps=False, **engine_kw):
     """Both packages' engines for scenario ``name`` over the same init and
-    batches -> (reference trace, port trace, w_ref gap, port state)."""
-    jcfg = dataclasses.replace(get_config("olmo-1b").reduced(), **NARROW)
-    tcfg = dataclasses.replace(t_get_config("olmo-1b").reduced(), **NARROW)
+    batches -> (reference trace, port trace, w_ref gap, port state), and
+    with ``row_gaps`` each cluster row's gap to the reference's row over
+    that row's move from init. ``masked``: both run the async events
+    through their masked train steps; ``dtype`` overrides the model's
+    (bfloat16); ``engine_kw`` goes to both ``build_engine``s."""
+    narrow = dict(NARROW, **({} if dtype is None else {"dtype": dtype}))
+    jcfg = dataclasses.replace(get_config("olmo-1b").reduced(), **narrow)
+    tcfg = dataclasses.replace(t_get_config("olmo-1b").reduced(), **narrow)
     jscn, tscn = JS.get_scenario(name), TS.get_scenario(name)
     jh = JS.apply_hfl_overrides(jscn, HFLConfig(
         tiers=parse_tiers_spec("2x2:H=2"), payload_accounting=accounting,
@@ -105,29 +108,41 @@ def _run_both(name, *, accounting="analytic", codec="delta-varint", seed=0):
     tstate = state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
     w0 = _flat(jax.tree.leaves(jstate.w_ref))
 
-    jeng = JS.build_engine(jscn, jh, lp=JLP(M=32, model_params=1e6), seed=seed)
+    jeng = JS.build_engine(jscn, jh, lp=JLP(M=32, model_params=1e6), seed=seed,
+                           **engine_kw)
+    jsched = j_sched(base_lr, 1, decay)
     jstate, jtrace = jeng.run(
         jstate,
-        jax.jit(jhfl.make_cluster_train_step(
-            j_loss_fn(jcfg), jopt, j_sched(base_lr, 1, decay))),
+        jax.jit(jhfl.make_cluster_train_step(j_loss_fn(jcfg), jopt, jsched)),
         jhfl.jit_sync_step(jhfl.make_sync(jhfl.SyncPlan.from_config(jh))),
         ({"tokens": jnp.asarray(b)} for b in _batches(jcfg.vocab_size, N, local_b)),
-        STEPS)
+        STEPS, masked_train_step=jax.jit(jhfl.make_masked_cluster_train_step(
+            j_loss_fn(jcfg), jopt, jsched)) if masked else None)
 
-    teng = TS.build_engine(tscn, th, lp=TLP(M=32, model_params=1e6), seed=seed)
+    teng = TS.build_engine(tscn, th, lp=TLP(M=32, model_params=1e6), seed=seed,
+                           **engine_kw)
     topt = TSGDM(momentum=0.9, weight_decay=1e-4)
+    tsched = t_sched(base_lr, 1, decay)
     tstate, ttrace = teng.run(
         tstate,
-        thfl.make_cluster_train_step(t_loss_fn(tcfg), topt,
-                                     t_sched(base_lr, 1, decay)),
+        thfl.make_cluster_train_step(t_loss_fn(tcfg), topt, tsched),
         thfl.make_sync(thfl.SyncPlan(th)),
         ({"tokens": torch.from_numpy(b).long()}
          for b in _batches(tcfg.vocab_size, N, local_b)),
-        STEPS)
+        STEPS, masked_train_step=thfl.make_masked_cluster_train_step(
+            t_loss_fn(tcfg), topt, tsched) if masked else None)
     jw = _flat(jax.tree.leaves(jstate.w_ref))
     tw = _flat([t.numpy() for t in tree_leaves(tstate.w_ref)])
     gap = float(np.linalg.norm(tw - jw) / np.linalg.norm(jw - w0))
-    return jtrace, ttrace, gap, tstate
+    if not row_gaps:
+        return jtrace, ttrace, gap, tstate
+    rows = []
+    for n in range(N):
+        jr = _flat([x[n] for x in jax.tree.leaves(jstate.params)])
+        tr = _flat([x[n].float().numpy() for x in tree_leaves(tstate.params)])
+        rows.append(float(np.linalg.norm(tr - jr)
+                          / max(np.linalg.norm(jr - w0), 1e-30)))
+    return jtrace, ttrace, gap, tstate, rows
 
 
 def _check_same_run(jtrace, ttrace, gap, tstate):

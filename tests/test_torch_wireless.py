@@ -177,8 +177,13 @@ def test_waypoint_step_and_trace_replay_raises():
     budget = np.linspace(0.0, 900.0, 6)
     _same(tdev.waypoint_step(pos.copy(), wp.copy(), budget.copy(), rng_t, 750.0),
           jdev.waypoint_step(pos.copy(), wp.copy(), budget.copy(), rng_j, 750.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        tdev.DeviceFleet(ttop.HCNTopology(seed=0), 2, trace=object())
+    # trace replay is ported (tests/test_torch_traces.py); a trace whose MU
+    # count is not the topology's raises, as in the reference
+    from repro_torch.sim import traces as ttr
+
+    with pytest.raises(AssertionError, match="trace has 5 MUs"):
+        tdev.DeviceFleet(ttop.HCNTopology(seed=0), 2,
+                         trace=ttr.generate("random-waypoint", 5, 10.0))
 
 
 @pytest.mark.parametrize("policy,prate", [("uniform", 0.5), ("biased", 0.5),
