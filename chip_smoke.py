@@ -62,7 +62,11 @@ nonzero):
      step every row of u and v must hold >= k zeros; the fused run says
      which selections the ``block_select`` candidates answered, by hop;
      the pallas run keeps its state after step 7, the one before the
-     second sync;
+     second sync; then the non-IID twin (``launch.noniid_hfl.run``: the
+     iid, label-sorted and dirichlet(0.3) splits, batch 16 per MU, H = 4,
+     ``pallas``) for ``NONIID_STEPS`` = 4 steps each, one sync each,
+     3·((K + N)·4 + 2N + 1) = 465 launches of each DGC kernel, the same
+     u/v zeros check;
   6. the comm path on that state, as an ``HFLState`` over the ResNet-18
      tree at 7 clusters (φ = 0.9 up and down, β_s = 0.5, β_m = 0.2):
      ``comm.make_sync_probe`` for every registered codec with ``pallas``
@@ -79,10 +83,14 @@ nonzero):
      per-cluster sync (``sim.engine.make_async_sync_step``, sparse
      downlink, cluster 3) with ``pallas`` and ``fused`` Ω on the card
      against a CPU copy: w_ref, eps[n], e_dl[n], row n and the device bit
-     counts equal, two launches of each kernel of the impl;
-  7. the simulator's path, six runs through ``repro_torch.launch.train``
-     with ``--scenario`` (``sim.scenarios.build_engine`` and
-     ``SimEngine.run``) at full olmo-1b width, 4 steps:
+     counts equal, two launches of each kernel of the impl; and the tiered
+     cascade (``core.hfl.HierSyncStep``) on a random depth-3 state of that
+     Q, 2 edges x 3 clusters, with ``pallas`` and ``hist``: the hier
+     probe's bits of a top-2 boundary, that cascade, a unit sync and a root
+     push, every row card = CPU bit for bit, 27 launches each;
+  7. the simulator's path, nine runs through ``repro_torch.launch.train``
+     (``sim.scenarios.build_engine`` and ``SimEngine.run``, or
+     ``core.schedule.run_hfl``) at full olmo-1b width, 4 steps:
      ``paper-fig3`` (lockstep, 7 x 4 MUs, H = 2, ``FIG3_LAYERS`` layers,
      ``pallas`` Ω, measured accounting with ``delta-varint``),
      ``stragglers`` (deadline, ``2x2:H=2``, full depth, ``fused`` Ω,
@@ -94,7 +102,17 @@ nonzero):
      trace with ``move`` residency, ``2x2:H=2``, full depth, ``fused`` Ω,
      ``--sim-seed 25``: an MU re-associates within the run) and
      ``scale-1m`` (async, the live 1.05M-MU fleet behind 7 x 4 slots,
-     ``pallas`` Ω, ``SCALE_LAYERS`` layers); the lockstep/deadline runs
+     ``pallas`` Ω, ``SCALE_LAYERS`` layers), then the depth-3 trees (2
+     edges x 2 SBSs x 4 MUs, ``HIER_LAYERS`` layers, ``pallas`` Ω):
+     ``hier-3tier`` (measured ``delta-varint``, the hier probe; tops 1 and
+     2, 30 launches each), ``hier-deadline`` (``--sim-seed 0``: an MU is
+     dropped; 15 launches) and the async-root tree ``--tiers
+     2x2x4:H=2,2:async`` without a scenario (the unit scheduler through
+     ``run_hfl``: 4 unit syncs and 2 root pushes, 14 launches), checking
+     the rows identical under each aggregator of the top that fired, each
+     pushing unit's rows equal to the new root reference, the ledger's
+     per-boundary links equal to the probe's counts, and every peak under
+     ``PEAK_LIMIT_GB``; the lockstep/deadline runs
      check the cluster rows identical after every sync and a sat-out
      cluster's params and momentum rows bitwise unchanged by a train step;
      the async runs check every masked step leaves the other clusters'
@@ -143,11 +161,18 @@ SELECT_WARP_SPAN, SELECT_CTA_SPAN = 1024, 8192
 # bitpack's design (csrc/bitpack.cu): CTAs per tile, elements per chunk
 BP_CTAS, BP_CHUNK = 8, 4096
 F_STEPS, F_LR = 8, 0.05  # the paper-exact path: 2 syncs, the example's lr
+NONIID_STEPS = 4  # the non-IID twin: one sync per split at H = 4
 FIG3_LAYERS = 6  # paper-fig3's depth cut: 7 clusters' state at full width
 # scale-1m's depth cut: 7 clusters' async state (e_dl included) and the
 # masked-step check's copies of the 6 idle rows pass the card at 6 layers
 SCALE_LAYERS = 4
 TRACE_SEED = 25  # trace-replay: an MU re-associates within the 4 steps
+# the depth-3 runs' depth cut: 4 clusters' state plus the tier buffers (24
+# B/param) and the probe's two scratch rows pass the card at 16 layers
+HIER_LAYERS = 6
+HIER_DEADLINE_SEED = 0  # hier-deadline: the deadline drops an MU in both rounds
+ASYNC_ROOT = "2x2x4:H=2,2:async"  # the scenario-free async-root tree
+PEAK_LIMIT_GB = 76.0
 MAIN_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
              "--log-every", "1", "--device", "cuda"]
@@ -329,7 +354,7 @@ def main(argv):
 
         from repro_torch.comm import accounting as acc
         from repro_torch.comm import codecs as cod
-        from repro_torch.configs import get_config
+        from repro_torch.configs import HFLConfig, get_config, parse_tiers_spec
         from repro_torch.configs.resnet18_cifar import CONFIG as PAPER
         from repro_torch.core import sparsify as sp
         from repro_torch.core import hfl as H
@@ -343,6 +368,7 @@ def main(argv):
         from repro_torch.kernels.fused_sync import kernel as FK
         from repro_torch.kernels.fused_sync import ops as fops
         from repro_torch.launch import comm_bits
+        from repro_torch.launch import noniid_hfl
         from repro_torch.launch import paper_accuracy as pa
         from repro_torch.launch import train
         from repro_torch.models.resnet import init_resnet18
@@ -877,6 +903,44 @@ def main(argv):
                       f"{h} {c['kernel_pipeline']}/{c['exact_fallback']}"
                       for h, c in hops.items()), flush=True)
         del out
+    # the non-IID twin (launch.noniid_hfl): the three splits of the example at
+    # full width, 7 x 4, H = 4, its batch of 16 per MU, one sync each
+    min_zeros = {}
+
+    def on_split_step(split, t, sim, metrics):
+        min_zeros.setdefault(split, []).append(min(
+            int((sim.state[b] == 0).sum(dim=1).min()) for b in ("u", "v")))
+
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    nout = noniid_hfl.run(NONIID_STEPS, period=period, width=PAPER.width,
+                          device="cuda", omega_impl="pallas", on_step=on_split_step)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    by_path["faithful non-IID pallas"] = launches
+    want_n = len(nout) * ((K_f + N_f) * NONIID_STEPS
+                          + (2 * N_f + 1) * (NONIID_STEPS // period))
+    emit({"phase": "faithful_noniid", "impl": "pallas", "arch": "resnet18-cifar",
+          "width": PAPER.width, "Q": Qf, "clusters": N_f, "period": period,
+          "steps": NONIID_STEPS, "splits": {
+              name: {"losses": r["losses"], "top1": r["acc"], "step_s": r["step_s"],
+                     "min_zeros_per_row": min_zeros[name]}
+              for name, r in nout.items()},
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_want": want_n, "k": kf})
+    for name in f_kernels["pallas"]:
+        if launches[name] != want_n:
+            raise AssertionError(f"non-IID: {name} launched {launches[name]} "
+                                 f"times, want {want_n}")
+    for name, r in nout.items():
+        if not all(math.isfinite(l) for l in r["losses"] + [r["acc"]]):
+            raise AssertionError(f"non-IID {name}: non-finite loss or accuracy")
+        if len(min_zeros[name]) != NONIID_STEPS or min(min_zeros[name]) < kf:
+            raise AssertionError(f"non-IID {name}: a u/v row holds fewer than "
+                                 f"k = {kf} zeros after a step")
+    del nout
 
     # ---- 6. the comm path on the faithful path's sync state ---------------
     t6 = time.perf_counter()
@@ -1068,6 +1132,67 @@ def main(argv):
     emit({"check": "async_sync", "Q": Qf, "clusters": N_f, "cluster": n_a,
           "weight": w_a, "dl_sparse": True, "card_equals_cpu_bit_patterns": True,
           "launches": async_launches, **async_check})
+    # the tiered cascade (core.hfl.HierSyncStep) on a random depth-3 state of
+    # the faithful path's Q, 2 edges x 3 clusters (tier 1's group mean is a
+    # multiply by f32(1/3), its δ an fma): a top-2 cascade, a unit sync and a
+    # root push, and the hier probe's bits before them, on the card against a
+    # CPU copy, bit for bit, with the pallas and hist routes
+    gh = torch.Generator().manual_seed(5)
+    noise = lambda rows, sc: sc * torch.randn((rows, Qf), generator=gh)
+    w0 = noise(1, 1.0)
+    hier_rows = {"params": w0 + noise(6, 0.1), "w_ref": w0[0].clone(),
+                 "eps": noise(6, 0.01), "e": noise(1, 0.01)[0],
+                 "refs": w0 + noise(2, 0.05), "eps2": noise(2, 0.01),
+                 "errs": noise(2, 0.01)}
+    hier_launches, hier_check = {k: 0 for k in counters}, {}
+    for impl in ("pallas", "hist"):
+        cfg_h = HFLConfig(tiers=parse_tiers_spec("2x3x2:H=2,2"), omega_impl=impl)
+        got = {}
+        for where in ("cuda", "cpu"):
+            for fn in counters.values():
+                fn.launches = 0
+            r = {k: v.clone().to(where) for k, v in hier_rows.items()}
+            st = HFLState(params=fl.unpack_stacked(r["params"], spec_f), opt={},
+                          w_ref=fl.unpack(r["w_ref"], spec_f),
+                          eps=fl.unpack_stacked(r["eps"], spec_f),
+                          e=fl.unpack(r["e"], spec_f), step=0)
+            bufs = H.HierBufs(refs=(r["refs"],), eps=(r["eps2"],), errs=(r["errs"],))
+            uls, dls = acc.make_hier_sync_probe(cfg_h, "delta-varint")(st, bufs, 2)
+            bits = [int(b) for b in torch.cat([*uls, *dls])]
+            step = H.HierSyncStep(cfg_h)
+            unit_sync, push = step.unit_ops(2)
+            snaps = []
+            for call in (lambda st, b: step(st, b, 2),
+                         lambda st, b: unit_sync(st, b, 1, 1),
+                         lambda st, b: push(st, b, 2, 1, E.async_weight(1, 2))):
+                st, bufs = call(st, bufs)
+                snaps.append([v.to("cpu", copy=True) for v in r.values()])
+            if where == "cuda":
+                torch.cuda.synchronize()
+                for k, fn in counters.items():
+                    hier_launches[k] += fn.launches
+            got[where] = (bits, snaps)
+            del r, st, bufs
+        if got["cuda"][0] != got["cpu"][0]:
+            raise AssertionError(f"hier probe {impl}: bits {got['cuda'][0]} on the "
+                                 f"card, {got['cpu'][0]} on the CPU")
+        for call, a_, b_ in zip(("cascade top 2", "unit sync", "root push"),
+                                got["cuda"][1], got["cpu"][1]):
+            for name, x, y in zip(hier_rows, a_, b_):
+                same_bits(torch, [x], [y], f"hier {impl} {call}: {name}")
+        hier_check[impl] = {"probe_bits_ul_dl": got["cuda"][0]}
+        del got
+    want_h = {k: 0 for k in counters}
+    for k in path_kernels["pallas"]:  # probe 11 + cascade 11 + unit 4 + push 1
+        want_h[k] = 27
+    if hier_launches != want_h:
+        raise AssertionError(f"hier check: launches {hier_launches}, want {want_h}")
+    by_path["hier sync check (ResNet-18 Q, 2x3x2)"] = hier_launches
+    emit({"check": "hier_sync", "Q": Qf, "tiers": "2x3x2:H=2,2",
+          "calls": ["probe top 2", "cascade top 2", "unit_sync u=1", "push t=2 a=1"],
+          "card_equals_cpu_bit_patterns": True, "launches": hier_launches,
+          **hier_check})
+    del hier_rows, w0
     emit({"phase": "comm_path", "Q": Qf, "impls": list(payloads),
           "codecs": names, "payloads_per_probe": N_f + 1,
           "payload_k": [int(v.numel()) for v, _ in payloads["pallas"]],
@@ -1086,7 +1211,6 @@ def main(argv):
     # three scenario runs through the train CLI's build_engine + SimEngine.run
     # at full olmo-1b width; paper-fig3's 7 x 4 clusters at a depth cut (the
     # state of 7 full-depth clusters does not fit the card)
-    from repro_torch.configs import HFLConfig, parse_tiers_spec
     from repro_torch.sim.scenarios import apply_hfl_overrides, get_scenario
 
     t7 = time.perf_counter()
@@ -1103,26 +1227,110 @@ def main(argv):
                 ("async", "pallas", two + ["--payload-accounting", "measured",
                                            "--codec", "delta-varint"]),
                 ("trace-replay", "fused", two + ["--sim-seed", str(TRACE_SEED)]),
-                ("scale-1m", "pallas", ["--layers", str(SCALE_LAYERS)]))
+                ("scale-1m", "pallas", ["--layers", str(SCALE_LAYERS)]),
+                # the depth-3 trees (2 edges x 2 SBSs x 4 MUs) at paper-fig3's
+                # depth cut: 4 clusters' state and the tier buffers
+                ("hier-3tier", "pallas", ["--layers", str(HIER_LAYERS),
+                                          "--payload-accounting", "measured",
+                                          "--codec", "delta-varint"]),
+                ("hier-deadline", "pallas", ["--layers", str(HIER_LAYERS),
+                                             "--sim-seed", str(HIER_DEADLINE_SEED)]),
+                (ASYNC_ROOT, "pallas", ["--layers", str(HIER_LAYERS)]))
     as_int = lambda x: x.view(torch.int16 if x.element_size() == 2 else torch.int32)
-    for name, impl, extra in sim_runs:
-        args = train.parse_args(
-            ["--full", "--scenario", name, "--omega-impl", impl, "--batch-per-mu",
-             "4", "--seq", "128", "--steps", str(STEPS), "--log-every", "1",
-             "--device", "cuda"] + extra)
-        scn = get_scenario(name)
-        hfl_s = apply_hfl_overrides(scn, HFLConfig(
-            tiers=parse_tiers_spec(args.tiers or "4x2:H=4")))
+
+    def check_async_root(name, args, hfl_s, out, launches, peak, sat_out, events):
+        """The async-root tree through run_hfl (the unit scheduler without a
+        radio): every unit round a within-unit tier-1 sync (G uplinks and
+        one downlink Ω), every tiers[2].period rounds a root push (one Ω)."""
         n_s, H_s = hfl_s.num_clusters, hfl_s.tiers[1].period
-        asyn = scn.sim.discipline == "async"
+        U = hfl_s.agg_count(1)
+        G, rounds = n_s // U, STEPS // H_s
+        syncs = [e for e in events if e["kind"] == "unit_sync"]
+        pushes = [e for e in events if e["kind"] == "push"]
+        want = {k: 0 for k in counters}
+        for k in path_kernels[args.omega_impl]:
+            want[k] = len(syncs) * (G + 1) + len(pushes)
+        emit({"phase": "sim_path", "scenario": None, "tiers": name,
+              "impl": args.omega_impl, "discipline": "async root (unit scheduler)",
+              "arch": cfg.name, "layers": args.layers, "d_model": cfg.d_model,
+              "clusters": n_s, "units": U, "mus_per_cluster": hfl_s.mus_per_cluster,
+              "steps": STEPS, "losses": out["hist"], "eval_loss": out["eval_loss"],
+              "steady_s_per_unit_round": out["timing"]["steady_s_per_step"],
+              "first_unit_round_s": out["timing"]["compile_s"],
+              "sync_ms": [1e3 * x for x in out["sync_s"]],
+              "max_memory_allocated_gb": peak / 1e9, "events": events,
+              "sat_out_by_step": sat_out, "launches": launches,
+              "launches_want": want, "card": smi})
+        if launches != want or want["update_max"] + want["block_select"] != 14:
+            raise AssertionError(f"sim {name}: launches {launches}, want {want}")
+        if not (len(syncs) == U * rounds and len(pushes) == U * rounds
+                // hfl_s.tiers[2].period and all(e["rows_ok"] for e in events)):
+            raise AssertionError(f"sim {name}: unit events {events}")
+        if not all(0 < e["weight"] <= 1 / hfl_s.tiers[2].fanout for e in pushes):
+            raise AssertionError(f"sim {name}: push weights {pushes}")
+        # every train call trains one unit; the other unit's rows sit out
+        if not (len(sat_out) == U * rounds * H_s
+                and all(len(o) == n_s - G for o in sat_out)):
+            raise AssertionError(f"sim {name}: sat-out {sat_out}")
+        if not (math.isfinite(out["eval_loss"])
+                and all(math.isfinite(l) for l in out["hist"])):
+            raise AssertionError(f"sim {name}: non-finite loss")
+        if peak / 1e9 >= PEAK_LIMIT_GB:
+            raise AssertionError(f"sim {name}: peak {peak / 1e9:.2f} GB")
+
+    for name, impl, extra in sim_runs:
+        scenario = name != ASYNC_ROOT  # the async root runs without a scenario
+        args = train.parse_args(
+            (["--full", "--scenario", name] if scenario
+             else ["--full", "--tiers", name])
+            + ["--omega-impl", impl, "--batch-per-mu", "4", "--seq", "128",
+               "--steps", str(STEPS), "--log-every", "1", "--device", "cuda"] + extra)
+        hfl_s = HFLConfig(tiers=parse_tiers_spec(args.tiers or "4x2:H=4"))
+        if scenario:
+            scn = get_scenario(name)
+            hfl_s = apply_hfl_overrides(scn, hfl_s)
+        n_s, H_s = hfl_s.num_clusters, hfl_s.tiers[1].period
+        hier = hfl_s.depth > 2
+        asyn = not hier and scn.sim.discipline == "async"
         measured = args.payload_accounting == "measured"
         identical, sat_out, events, step_s, last = [], [], [], [], {}
+        tops, unit_events = [], []
 
         def on_sync(i, state, seconds, event=None):
             if event is None:  # lockstep/deadline: every row is the consensus
                 identical.append(all(
                     torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
                     for n in range(1, P.shape[0])))
+                return
+            if event.get("kind") == "cascade":
+                # rows identical under each aggregator of the top boundary
+                # that fired, and the tier-1 aggregators' rows differ unless
+                # the root fired
+                W = H._subtree_width(hfl_s.tiers, 0, event["top"])
+                leaves = tree_leaves(state.params)
+                tops.append({"top": event["top"], "seconds": seconds,
+                             "rows_identical_under_top": all(
+                                 torch.equal(P[n], P[(n // W) * W])
+                                 for P in leaves for n in range(n_s)),
+                             "edges_differ": any(
+                                 not torch.equal(P[0], P[n_s - 1]) for P in leaves)})
+                return
+            if event.get("kind") in ("unit_sync", "push"):
+                # after a root push the pushing unit's rows hold the fresh
+                # root reference (one cast); a unit sync leaves its rows equal
+                G = n_s // hfl_s.agg_count(1)
+                rows = range(event["unit"] * G, (event["unit"] + 1) * G)
+                leaves = tree_leaves(state.params)
+                if event["kind"] == "push":
+                    ok = all(torch.equal(as_int(P[n]), as_int(R.to(P.dtype)))
+                             for P, R in zip(leaves, tree_leaves(state.w_ref))
+                             for n in rows)
+                else:
+                    ok = all(torch.equal(P[n], P[rows[0]]) for P in leaves
+                             for n in rows)
+                unit_events.append({k: event.get(k) for k in (
+                    "kind", "unit", "tier", "agg", "round", "staleness", "weight",
+                    "seconds")} | {"rows_ok": ok})
                 return
             # async: the active row is w_ref (dense downlink), or its value
             # after the event's last train step plus the received payload
@@ -1204,19 +1412,30 @@ def main(argv):
         peak = torch.cuda.max_memory_allocated()
         last.clear()
         by_path[f"sim {name} {impl}"] = launches
+        if not scenario:
+            check_async_root(name, args, hfl_s, out, launches, peak, sat_out,
+                             unit_events)
+            del out
+            continue
         trace, eng = out["trace"], out["engine"]
         meta = trace.meta
         syncs_rows = [r for r in trace.rows if r["kind"] == "sync"]
         # every sync selects its rows' Ω once: N uplinks + 1 downlink under
         # lockstep (and the measured probe again before it), 1 + 1 per async
-        # event with the sparse downlink, 1 with the dense one
+        # event with the sparse downlink, 1 with the dense one; a tiered
+        # boundary one per child and one per aggregator of every tier that
+        # fired (and the probe again under measured accounting)
         if asyn:
-            per_sync = 1 + int(hfl_s.async_dl_sparse)
+            n_omega = (1 + int(hfl_s.async_dl_sparse)) * len(syncs_rows)
+        elif hier:
+            n_omega = sum(hfl_s.agg_count(t - 1) + hfl_s.agg_count(t)
+                          for r in syncs_rows for t in range(1, r["tier"] + 1))
+            n_omega *= 2 if measured else 1
         else:
-            per_sync = (n_s + 1) * (2 if measured else 1)
+            n_omega = (n_s + 1) * (2 if measured else 1) * len(syncs_rows)
         want = {k: 0 for k in counters}
         for k in path_kernels[impl]:
-            want[k] = per_sync * len(syncs_rows)
+            want[k] = n_omega
         line = {"phase": "sim_path", "scenario": name, "impl": impl,
                 "discipline": meta["discipline"], "accounting": meta["payload_accounting"],
                 "residency": meta["residency"], "arch": cfg.name,
@@ -1245,10 +1464,13 @@ def main(argv):
         else:
             line.update(deadline_s=[r["deadline_s"] for r in syncs_rows],
                         sat_out_by_step=sat_out, rows_identical_after_sync=identical)
+        if hier:
+            line.update(sync_tiers=[r["tier"] for r in syncs_rows], cascades=tops)
+        links = ("sbs_ul", "mbs_dl") + (("t2_ul", "t2_dl") if hier else ())
         if measured:
             line["ledger"] = {k: meta[k] for k in (
-                "codec", "payload_size", "bits_sbs_ul", "bits_mbs_dl",
-                "events_sbs_ul", "events_mbs_dl", "bits_per_param_mean")}
+                "codec", "payload_size", "bits_per_param_mean",
+                *(f"{x}_{l}" for l in links for x in ("bits", "events")))}
         if eng.residency is not None:
             # shards conserved; MUs whose cluster changed since the start
             eng.residency.check_conservation()
@@ -1266,6 +1488,8 @@ def main(argv):
         emit(line)
         if launches != want:
             raise AssertionError(f"sim {name}: launches {launches}, want {want}")
+        if peak / 1e9 >= PEAK_LIMIT_GB:
+            raise AssertionError(f"sim {name}: peak {peak / 1e9:.2f} GB")
         if not (math.isfinite(out["eval_loss"])
                 and all(math.isfinite(l) for l in out["hist"])):
             raise AssertionError(f"sim {name}: non-finite loss")
@@ -1284,6 +1508,24 @@ def main(argv):
                         and meta["events_sbs_ul"] == meta["events_mbs_dl"]
                         == len(events)):
                     raise AssertionError(f"sim {name}: ledger and event counts differ")
+        elif hier:
+            if not ([t["top"] for t in tops] == line["sync_tiers"] == [1, 2]
+                    and all(t["rows_identical_under_top"] for t in tops)
+                    and [t["edges_differ"] for t in tops] == [True, False]):
+                raise AssertionError(f"sim {name}: tiered rows {tops}")
+            if len(sat_out) != STEPS:
+                raise AssertionError(f"sim {name}: sat-out steps {sat_out}")
+            if name == "hier-deadline" and not any(r["dropped"] for r in trace.rows):
+                raise AssertionError("sim hier-deadline: the deadline dropped no MU")
+            if measured:  # every boundary's ledger links = the probe's counts
+                for l in links:
+                    if meta[f"bits_{l}"] != sum(r.get(f"bits_{l}", 0.0)
+                                                for r in syncs_rows):
+                        raise AssertionError(f"sim {name}: ledger {l} != probe")
+                if not (meta["events_sbs_ul"] == n_s * len(syncs_rows)
+                        and meta["events_t2_ul"] == hfl_s.agg_count(1)
+                        and meta["events_t2_dl"] == 1):
+                    raise AssertionError(f"sim {name}: ledger events {line['ledger']}")
         else:
             if not (len(identical) == len(syncs_rows) == STEPS // H_s
                     and all(identical)):

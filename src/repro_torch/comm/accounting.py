@@ -1,16 +1,18 @@
-"""Measured-bits payload accounting: the port of ``repro.comm.accounting``
-at depth 2.
+"""Measured-bits payload accounting: the port of ``repro.comm.accounting``.
 
   * ``PayloadLedger``    -- per-link record of measured bits over the
                             tier-boundary link graph (``link_names``):
                             ``mu_ul`` (MU->SBS access uplink), ``sbs_dl``
                             (SBS->MU broadcast downlink), ``sbs_ul`` /
-                            ``mbs_dl`` (SBS<->MBS fronthaul).
+                            ``mbs_dl`` (SBS<->MBS fronthaul), and at depth
+                            > 2 ``t{t}_ul`` / ``t{t}_dl`` per boundary.
   * ``make_sync_probe``  -- from the live ``HFLState``, the exact
                             ``(values, indices)`` payloads the flat sync is
                             about to send and their codec-measured bits
                             (``measure_bits_torch``: only 0-d counts, on
                             the state's device, no host sync).
+  * ``make_hier_sync_probe`` -- the same for the depth > 2 cascade, per
+                            boundary, from ``(state, bufs, top)``.
   * ``access_bits``      -- the access links' price: the codec applied to
                             a synthetic payload with the exact keep count
                             and uniformly spread indices (the per-MU train
@@ -20,9 +22,8 @@ at depth 2.
                             simulator prices with a nonzero
                             ``LatencyParams.index_bits``.
 
-Not ported yet: the depth > 2 probe ``make_hier_sync_probe`` (ROADMAP
-Queue 1 item 13) and the ledger's live metrics mirror ``registry`` (item
-14).
+Not ported yet: the ledger's live metrics mirror ``registry`` (ROADMAP
+Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -159,14 +160,12 @@ def make_sync_probe(hfl_cfg, codec: "str | Codec"):
     its buffers in place; the probe hands it scratch copies of eps [N, Q]
     and e [Q] and leaves the state as it was. Run it before the sync on
     the same state. ``sync_mode="dense"`` ships the raw model both ways:
-    static 32·Q bits per hop."""
+    static 32·Q bits per hop. On a depth > 2 config it probes the flat
+    sync over all N clusters with tier 1's φ and β, as the reference's
+    does; the cascade's own probe is ``make_hier_sync_probe``."""
     from repro_torch.core import hfl as H
     from repro_torch.utils import flatten as fl
 
-    if len(hfl_cfg.tiers) > 2:
-        raise NotImplementedError("the depth > 2 sync probe (make_hier_sync_"
-                                  "probe) is not ported yet: ROADMAP Queue 1 "
-                                  "item 13")
     codec = get_codec(codec) if isinstance(codec, str) else codec
     N = hfl_cfg.num_clusters
 
@@ -191,6 +190,33 @@ def make_sync_probe(hfl_cfg, codec: "str | Codec"):
         return ul, codec.measure_bits_torch(dvals, didx, Q)
 
     probe.payloads = payloads
+    return probe
+
+
+def make_hier_sync_probe(hfl_cfg, codec: "str | Codec"):
+    """-> ``probe(state, bufs, top) -> (uls, dls)`` for depth > 2:
+    ``uls[t-1]`` the [A_{t-1}] int64 bits of the uplinks crossing
+    boundary t, ``dls[t-1]`` the [A_t] bits of its downlinks, tensors on
+    the state's device. The payloads come from the cascade's own code
+    (``core.hfl.hier_payloads``) on two scratch [Q] rows, with the live
+    tier buffers; the state and the buffers are left as they were. Run it
+    before the sync on the same ``(state, bufs)``."""
+    from repro_torch.core import hfl as H
+    from repro_torch.utils import flatten as fl
+
+    codec = get_codec(codec) if isinstance(codec, str) else codec
+
+    def probe(state, bufs, top):
+        Q = fl.spec_of(state.w_ref).total
+        top = int(top)
+        uls, dls = [[] for _ in range(top)], [[] for _ in range(top)]
+        H.hier_payloads(
+            hfl_cfg, state, bufs, top,
+            on_up=lambda t, v, i: uls[t - 1].append(codec.measure_bits_torch(v, i, Q)),
+            on_down=lambda t, v, i: dls[t - 1].append(codec.measure_bits_torch(v, i, Q)))
+        return (tuple(torch.stack(b) for b in uls),
+                tuple(torch.stack(b) for b in dls))
+
     return probe
 
 

@@ -1,7 +1,13 @@
 """Federated data partitioning and mobile data residency: the port's copy
-of ``repro.data.federated``'s ``partition_iid`` and ``ResidencyTracker``, in
-numpy, so both packages draw the same shards from the same seed and remap
-them the same way as the fleet moves.
+of ``repro.data.federated`` (``partition_iid``, ``partition_label_sorted``,
+``partition_dirichlet``, ``ResidencyTracker``), in numpy, so both packages
+draw the same shards from the same seed and remap them the same way as the
+fleet moves.
+
+The paper divides CIFAR-10 "among the MUs without any shuffling"
+(sequential, so label-skewed when the source is class-ordered): IID,
+label-sorted (the paper's split of a class-ordered set) and Dirichlet
+non-IID (the standard benchmark for its §VI-D future work).
 
 ``ResidencyTracker``: when mobility re-associates an MU to a different
 SBS, which cluster trains on its data? Three policies
@@ -21,6 +27,26 @@ def partition_iid(n: int, K: int, rng=None):
     rng = rng or np.random.default_rng(0)
     idx = rng.permutation(n)
     return np.array_split(idx, K)
+
+
+def partition_label_sorted(labels, K: int):
+    idx = np.argsort(labels, kind="stable")
+    return np.array_split(idx, K)
+
+
+def partition_dirichlet(labels, K: int, alpha: float = 0.5, rng=None):
+    """Per class, a Dirichlet(α) share of its (shuffled) samples to each of
+    the K MUs; small α starves some MUs of whole classes, or of all data."""
+    rng = rng or np.random.default_rng(0)
+    labels = np.asarray(labels)
+    shards = [[] for _ in range(K)]
+    for c in np.unique(labels):
+        idx = rng.permutation(np.nonzero(labels == c)[0])
+        props = rng.dirichlet([alpha] * K)
+        cuts = (np.cumsum(props)[:-1] * len(idx)).astype(int)
+        for k, part in enumerate(np.split(idx, cuts)):
+            shards[k].append(part)
+    return [np.concatenate(s) if s else np.array([], int) for s in shards]
 
 
 class ResidencyTracker:

@@ -21,20 +21,29 @@ streams:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --scenario paper-fig3 --steps 4 --batch-per-mu 2 --seq 32
 
-The port runs every depth-2 scenario: the lockstep and deadline ones,
-the async ones (``async``, ``trace-replay``, ``flash-crowd``,
-``scale-1m``, ``scale-100k``; each event trains one cluster through
-``make_masked_cluster_train_step``) and ``manhattan``; ``--trace-in``
-replays a mobility trace file (CSV/JSONL, the README's schema) and
-``--residency move|duplicate|stale`` attaches the data-residency tracker:
+The port runs every scenario: the lockstep and deadline ones, the async
+ones (``async``, ``trace-replay``, ``flash-crowd``, ``scale-1m``,
+``scale-100k``; each event trains one cluster through
+``make_masked_cluster_train_step``), ``manhattan`` and the depth-3 trees
+(``hier-3tier``, ``hier-deadline``: the tiered cascade of
+``core.hfl.HierSyncStep``); ``--trace-in`` replays a mobility trace file
+(CSV/JSONL, the README's schema) and ``--residency move|duplicate|stale``
+attaches the data-residency tracker:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --scenario trace-replay --trace-in trace.csv --residency move \
       --steps 4 --batch-per-mu 2 --seq 32
 
-The depth-3 scenarios (``hier-3tier``, ``hier-deadline``), observability
-(``--obs-*``, ``--trace-viz``, ``--metrics-out``) and checkpoints are not
-ported yet and raise, naming their ROADMAP item.
+Without a scenario, ``--tiers`` of any depth runs the plain loop
+(``core.schedule.run_hfl``); ``:async`` makes the root tier clock-free,
+which runs the simulator's unit scheduler without a radio:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --tiers 2x2x4:H=2,2:async --steps 4 --batch-per-mu 2 --seq 32
+
+Observability (``--obs-*``, ``--trace-viz``, ``--metrics-out``),
+``--flat-shards`` > 1 and checkpoints are not ported yet and raise, naming
+their ROADMAP item.
 ``--layers N`` keeps the first N layers of the architecture (full width
 with ``--full``), so a configuration's state fits a card.
 """
@@ -105,9 +114,12 @@ def parse_args(argv=None):
                          "stays the configuration's)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--tiers", default=None,
-                    help="hierarchy spec FANOUTS[:H=PERIODS]: fan-outs "
-                         "root-down (4x2 = 4 clusters x 2 MUs), periods "
-                         "bottom-up (H=4)")
+                    help="hierarchy spec FANOUTS[:H=PERIODS][:async]: "
+                         "fan-outs root-down (4x2 = 4 clusters x 2 MUs; "
+                         "2x2x4 = 2 edges x 2 SBSs x 4 MUs), periods "
+                         "bottom-up (H=2,2: tier 1 every 2 iterations, the "
+                         "root every 2 tier-1 rounds); ':async' makes the "
+                         "root tier clock-free")
     ap.add_argument("--clusters", type=int, default=None,
                     help="alias of --tiers CxM:H=P")
     ap.add_argument("--mus", type=int, default=None,
@@ -136,6 +148,7 @@ def parse_args(argv=None):
                          "stragglers | mobility | dropout | async | "
                          "trace-replay | manhattan | fault-dead-cluster | "
                          "diurnal | flash-crowd | scale-1m | prate-biased "
+                         "| hier-3tier | hier-deadline "
                          "(a scenario may pin HFL settings: paper-fig3 "
                          "pins 7 clusters x 4 MUs, H=2 and the paper's φ)")
     ap.add_argument("--sim-seed", type=int, default=0,
@@ -181,7 +194,10 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     after each sync; under an async scenario it is called after each
     event's per-cluster sync with the engine's event dict as a fourth
     argument (cluster, round, staleness, weight and the sent uplink/
-    downlink payloads, ``SimEngine.run``'s ``on_async_sync``).
+    downlink payloads, ``SimEngine.run``'s ``on_async_sync``). At depth > 2
+    the fourth argument is ``{"kind": "cascade", "top": top}`` after each
+    tiered consensus, and the unit scheduler's event dict (``kind``
+    "unit_sync" or "push") after each unit sync and push.
     ``wrap_train_step(train_step)`` and ``wrap_masked_step(masked_step)``
     may wrap the all-cluster and the one-cluster train step
     (instrumentation hooks). Returns hist (mean loss per step; the active
@@ -257,15 +273,22 @@ def run(args, *, on_sync=None, wrap_train_step=None,
 
     sync_s = []
 
-    def timed_sync(st):
+    def timed(fn, *args):
         _wait(dev)
         t0 = time.perf_counter()
-        st = sync_step(st)
+        out = fn(*args)
         _wait(dev)
         sync_s.append(time.perf_counter() - t0)
-        if on_sync is not None:
-            on_sync(len(sync_s), st, sync_s[-1])
-        return st
+        return out
+
+    if getattr(sync_step, "hier", False):
+        timed_sync = _TimedHier(sync_step, timed, sync_s, on_sync)
+    else:
+        def timed_sync(st):
+            st = timed(sync_step, st)
+            if on_sync is not None:
+                on_sync(len(sync_s), st, sync_s[-1])
+            return st
 
     lm = SyntheticLM(cfg.vocab_size, seed=1)
     rng = np.random.default_rng(2)
@@ -303,7 +326,8 @@ def run(args, *, on_sync=None, wrap_train_step=None,
         _sim_trailer(scenario, trace, args.trace_out)
     else:
         state = run_hfl(state, train_step, timed_sync, make_batches(),
-                        hfl.tiers[1].period, args.steps, on_step)
+                        hfl.tiers[1].period, args.steps, on_step,
+                        on_async_sync=async_synced)
 
     timing = clock.summary()
     if timing["steps"]:
@@ -329,6 +353,31 @@ def run(args, *, on_sync=None, wrap_train_step=None,
               flush=True)
     return {"hist": hist, "eval_loss": eval_loss, "timing": timing,
             "sync_s": sync_s, "trace": trace, "engine": engine}
+
+
+class _TimedHier:
+    """The tiered sync (``core.hfl.HierSyncStep``) with each cascade timed
+    and reported, ``on_sync(index, state, seconds, {"kind": "cascade",
+    "top": top})``. It carries what the simulator and ``run_hfl`` read off
+    a tiered sync (``hier``, ``cfg``, ``init_bufs``, ``fire_top``,
+    ``unit_ops``); the unit scheduler times and reports its unit syncs and
+    pushes itself."""
+
+    hier = True
+    collect_stats = False
+
+    def __init__(self, inner, timed, sync_s, on_sync):
+        self.cfg, self.init_bufs = inner.cfg, inner.init_bufs
+        self.fire_top, self.unit_ops = inner.fire_top, inner.unit_ops
+        self._inner, self._timed = inner, timed
+        self._sync_s, self._on_sync = sync_s, on_sync
+
+    def __call__(self, state, bufs, top=None):
+        state, bufs = self._timed(self._inner, state, bufs, top)
+        if self._on_sync is not None:
+            self._on_sync(len(self._sync_s), state, self._sync_s[-1],
+                          {"kind": "cascade", "top": top})
+        return state, bufs
 
 
 def _sim_trailer(scenario, trace, trace_out) -> None:

@@ -1,5 +1,5 @@
 """Simulation engine: wall-clock scenario runs of the real training loop
-(the port of ``repro.sim.engine``, depth 2, every discipline).
+(the port of ``repro.sim.engine``: every discipline, every depth).
 
 Couples three layers:
 
@@ -61,11 +61,21 @@ in-place lockstep sync; the async sync's own device counts), the access
 links with the codec on synthetic exact-k payloads, and a per-link
 ``PayloadLedger`` lands in the trace meta.
 
-Not ported yet (raise, naming their ROADMAP item): depth > 2 hierarchies
-(``_run_units``, Queue 1 item 13) and telemetry (item 14; the reference's
-spans and health signals have no counterpart, the null path only). The
-reference's null-wireless mode and ``record=`` switch are not carried
-over.
+Depth > 2 (a ``core.hfl.HierSyncStep``, detected by its ``hier``
+attribute): the engine threads the tier buffers and fires the highest
+boundary whose cadence is due (``hier_fire_top``), pricing every
+boundary's fronthaul (analytic per tier, or the hier probe's measured
+payloads on per-boundary ledger links); per-tier ``TierConfig.
+discipline`` entries resolve to a ``deadline`` boundary 1 and an async
+top suffix (``_tier_disciplines``), whose units run on their own clocks
+(``_run_units``: within-unit cascades and staleness-weighted pushes).
+
+Without ``topo``/``fleet``/``lp`` the engine runs in null-wireless mode:
+unit virtual time per iteration and no comms time, which is how
+``core.schedule.run_hfl`` drives an async-root tree (``record=False``
+keeps no trace rows). Telemetry (ROADMAP Queue 1 item 14) is not ported:
+the reference's spans and health signals have no counterpart, the null
+path only.
 """
 from __future__ import annotations
 
@@ -76,7 +86,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from repro_torch.comm.accounting import warn_index_bits_deprecated
+from repro_torch.comm.accounting import boundary_links, warn_index_bits_deprecated
 from repro_torch.comm.codecs import get_codec
 from repro_torch.configs.base import HFLConfig, SimConfig
 from repro_torch.obs.telemetry import make_telemetry
@@ -87,7 +97,7 @@ from repro_torch.utils.fp import axpy_, fma_f32
 from repro_torch.utils.tree import tree_leaves, tree_map
 from repro_torch.wireless.latency import (
     LatencyParams, fl_latency, fl_latency_single, hfl_latency,
-    hfl_latency_single,
+    hfl_latency_single, tier_payload_bits,
 )
 from repro_torch.wireless.subcarrier import reallocate_after_drop
 from repro_torch.wireless.topology import HCNTopology
@@ -104,9 +114,11 @@ class Trace:
 
     meta: dict = field(default_factory=dict)
     rows: list = field(default_factory=list)
+    record: bool = field(default=True, repr=False)  # False: keep no rows
 
     def add(self, **row) -> None:
-        self.rows.append(row)
+        if self.record:
+            self.rows.append(row)
 
     @property
     def wallclock(self) -> float:
@@ -292,50 +304,55 @@ def init_dl_error(state, hfl_cfg: HFLConfig):
 
 
 class SimEngine:
-    """Drives (train_step, sync_step) under a scenario's wall clock (the
-    reference's null-wireless mode, which adapted ``core.schedule.run_hfl``,
-    has no counterpart: the port's ``run_hfl`` is its own plain loop)."""
+    """Drives (train_step, sync_step) under a scenario's wall clock. With
+    ``topo``/``fleet``/``lp`` unset it runs in null-wireless mode (unit
+    virtual time per iteration, zero comms time), as ``core.schedule.
+    run_hfl`` does for an async-root tree; ``record=False`` keeps no
+    trace rows."""
 
     def __init__(
         self,
         *,
         period: int,
-        hfl_cfg: HFLConfig,
-        sim_cfg: SimConfig,
-        topo: HCNTopology,
-        fleet: DeviceFleet,
-        lp: LatencyParams,
+        hfl_cfg: Optional[HFLConfig] = None,
+        sim_cfg: Optional[SimConfig] = None,
+        topo: Optional[HCNTopology] = None,
+        fleet: Optional[DeviceFleet] = None,
+        lp: Optional[LatencyParams] = None,
+        record: bool = True,
         residency=None,
     ):
+        self._record = record
         self.period = int(period)
         self.hfl = hfl_cfg
-        self.sim = sim_cfg
-        self.obs = make_telemetry(sim_cfg.obs)  # raises for an enabled config
-        if len(hfl_cfg.tiers) > 2:
-            raise NotImplementedError(
-                "depth > 2 hierarchies in the simulator (_run_units) are not "
-                "ported yet: ROADMAP Queue 1 item 13")
+        self.sim = sim_cfg if sim_cfg is not None else SimConfig()
+        self.obs = make_telemetry(self.sim.obs)  # raises for an enabled config
         self.topo, self.fleet, self.lp = topo, fleet, lp
+        self.wireless = topo is not None and fleet is not None and lp is not None
         # oversubscribed fleets: more physical MUs than training slots
         # (SimConfig.fleet_mus_per_cluster > hfl.mus_per_cluster). Each
         # round subsamples the resident shards into the slots, so batches
         # stay [N, localB] while pricing/availability run fleet-wide.
-        slots = hfl_cfg.num_clusters * hfl_cfg.mus_per_cluster
-        self._oversub = fleet.K > slots
-        if self._oversub:
-            assert residency is not None, (
-                "an oversubscribed fleet (K > num_clusters * "
-                "mus_per_cluster) needs a residency tracker to pick "
-                "which resident shards fill the training slots")
-        else:
-            assert fleet.K == slots
-        if self.sim.rate_model == "maxmin" and fleet.K > lp.M:
-            raise ValueError(
-                f"rate_model='maxmin' (Alg. 2) needs M >= K sub-carriers "
-                f"but M={lp.M} < K={fleet.K}; use rate_model='single' "
-                f"for fleet-scale runs")
-        if self.sim.rate_model not in ("maxmin", "single"):
-            raise ValueError(f"unknown rate_model {self.sim.rate_model!r}")
+        self._oversub = False
+        if self.wireless:
+            assert hfl_cfg is not None, "wireless simulation needs hfl_cfg"
+            slots = hfl_cfg.num_clusters * hfl_cfg.mus_per_cluster
+            self._oversub = fleet.K > slots
+            if self._oversub:
+                assert residency is not None, (
+                    "an oversubscribed fleet (K > num_clusters * "
+                    "mus_per_cluster) needs a residency tracker to pick "
+                    "which resident shards fill the training slots")
+            else:
+                assert fleet.K == slots
+            if self.sim.rate_model == "maxmin" and fleet.K > lp.M:
+                raise ValueError(
+                    f"rate_model='maxmin' (Alg. 2) needs M >= K sub-carriers "
+                    f"but M={lp.M} < K={fleet.K}; use rate_model='single' "
+                    f"for fleet-scale runs")
+            if self.sim.rate_model not in ("maxmin", "single"):
+                raise ValueError(
+                    f"unknown rate_model {self.sim.rate_model!r}")
         # data residency tracker (data.federated.ResidencyTracker): when
         # set, batch rows follow the resident shards instead of the static
         # slot layout. None = static residency.
@@ -353,19 +370,22 @@ class SimEngine:
         self._sync_launches = 0
         self._bits_access = 0.0
         self._bits_fronthaul = 0.0
-        self._acc = hfl_cfg.payload_accounting
+        self._acc = (hfl_cfg.payload_accounting if hfl_cfg is not None
+                     else "analytic")
         if self._acc not in ("analytic", "measured"):
             raise ValueError(f"unknown payload_accounting {self._acc!r}")
         # client selection (sim.selection): None = the identity (prate >= 1,
         # uniform), and then no selector RNG stream is created
-        self.selector = make_selector(hfl_cfg, self.sim)
+        self.selector = (make_selector(hfl_cfg, self.sim) if self.wireless
+                         else None)
         self._codec = None
         self.ledger = None
         self._probe = None
         self._ab = None  # static per-link access bits (synthetic payloads)
         if self._acc == "measured":
             self._codec = get_codec(self.hfl.codec)
-        warn_index_bits_deprecated(self.lp)
+        if self.wireless:
+            warn_index_bits_deprecated(self.lp)
 
     # --- public entry ----------------------------------------------------
 
@@ -385,12 +405,18 @@ class SimEngine:
 
         ``train_step(state, batch, keep=None)`` is the port's
         ``make_cluster_train_step``: ``keep`` (bool [N]) is passed when
-        clusters sat the round out. The discipline is the fleet-wide
-        ``SimConfig.discipline``, as in the reference's depth-2 runs
-        (``_tier_disciplines``: per-tier ``TierConfig.discipline`` entries
-        act at depth > 2 only).
+        clusters sat the round out. The disciplines come from
+        ``_tier_disciplines``: the fleet-wide ``SimConfig.discipline`` at
+        depth 2, per-tier ``TierConfig.discipline`` entries at depth > 2.
+        A tiered ``sync_step`` (``core.hfl.HierSyncStep``, its ``hier``
+        attribute set) is called ``sync_step(state, bufs, top)`` on the
+        buffers of its own ``init_bufs``; with an async top suffix its
+        ``unit_ops`` drive ``_run_units``, which reports each unit sync
+        and push to ``on_async_sync`` (``kind`` "unit_sync" or "push",
+        ``unit``, ``tier``, ``agg``, ``round``, ``seconds`` and, for a
+        push, ``staleness`` and ``weight``).
 
-        Under ``async`` ``sync_step`` is unused: the engine builds the
+        Under depth-2 ``async`` ``sync_step`` is unused: the engine builds the
         staleness-weighted per-cluster sync (``make_async_sync_step``).
         ``masked_train_step(state, batch_n, n)``
         (``core.hfl.make_masked_cluster_train_step``) trains only the
@@ -404,22 +430,75 @@ class SimEngine:
         accounting) and the ``uplink``/``downlink`` (values, indices)
         payloads it sent (``downlink`` None when dense), alive for the call
         only."""
-        disc = self.sim.discipline
-        if disc not in ("lockstep", "deadline", "async"):
-            raise ValueError(f"unknown discipline {disc!r}")
         self._train_launches = 0
         self._sync_launches = 0
         self._bits_access = 0.0
         self._bits_fronthaul = 0.0
         self._slot_rot = 0
+        hier = bool(getattr(sync_step, "hier", False))
+        if hier and self.hfl is None:
+            # null-wireless (core.schedule.run_hfl): the tiered sync's own
+            # config describes the hierarchy
+            self.hfl = sync_step.cfg
         self._setup_measured(state)
-        if disc == "async":
+        cut, deadline = self._tier_disciplines(hier)
+        if cut is None:
+            return self._run_lockstep(
+                state, train_step, sync_step, batches, num_steps, on_step,
+                deadline=deadline,
+            )
+        if not hier:
             return self._run_async(state, train_step, batches, num_steps,
                                    on_step, masked_train_step, on_async_sync)
-        return self._run_lockstep(
-            state, train_step, sync_step, batches, num_steps, on_step,
-            deadline=disc == "deadline",
-        )
+        return self._run_units(state, train_step, sync_step, batches,
+                               num_steps, on_step, on_async_sync, cut=cut)
+
+    def _tier_disciplines(self, hier: bool):
+        """Resolve the run's sync disciplines -> ``(cut, deadline)``:
+        ``cut`` is the lowest ASYNC tier boundary (every boundary at or
+        above it runs clock-free; None = a fully synchronous run) and
+        ``deadline`` flags the boundary-1 per-MU straggler drop.
+
+        At depth 2 the fleet-wide ``SimConfig.discipline`` decides. Deeper
+        trees read the per-tier ``TierConfig.discipline`` entries; when
+        they all keep the default lockstep, the fleet-wide knob maps onto
+        the tree (``deadline`` onto boundary 1, ``async`` onto the top
+        boundary). Async boundaries must form a contiguous top suffix,
+        and ``deadline`` is boundary 1's only, below no async cut."""
+        sim_disc = self.sim.discipline
+        if sim_disc not in ("lockstep", "deadline", "async"):
+            raise ValueError(f"unknown discipline {sim_disc!r}")
+        if not hier:
+            if sim_disc == "async":
+                return 1, False
+            return None, sim_disc == "deadline"
+        d = [tc.discipline for tc in self.hfl.tiers[1:]]
+        if all(x == "lockstep" for x in d) and sim_disc != "lockstep":
+            if sim_disc == "deadline":
+                d[0] = "deadline"
+            else:
+                d[-1] = "async"
+        cut = None
+        for i, x in enumerate(d):
+            if x == "async":
+                cut = i + 1
+                break
+        if cut is not None and any(x != "async" for x in d[cut - 1:]):
+            raise ValueError(
+                f"async tier boundaries must form a contiguous top suffix "
+                f"of the tree (got disciplines {tuple(d)}): a synchronous "
+                f"barrier cannot run above children on their own clocks")
+        if any(x == "deadline" for x in d[1:]):
+            raise ValueError(
+                "the deadline discipline applies at tier boundary 1 only "
+                "(the per-MU round deadline); higher boundaries are "
+                "lockstep or async")
+        deadline = d[0] == "deadline"
+        if deadline and cut is not None:
+            raise ValueError(
+                "a deadline boundary below an async cut is not supported "
+                "yet (the unit scheduler prices rounds without drops)")
+        return cut, deadline
 
     # --- wireless plumbing -----------------------------------------------
 
@@ -446,9 +525,13 @@ class SimEngine:
                 f"sync's wire format is {wire}: measured bits price a "
                 f"fidelity the simulation does not exchange", stacklevel=2)
         Q = fl.spec_of(state.w_ref).total
+        depth = len(self.hfl.tiers)
         self.ledger = acct.PayloadLedger(
-            codec=self._codec.name, size=Q, links=acct.link_names(2))
-        self._probe = acct.make_sync_probe(self.hfl, self._codec)
+            codec=self._codec.name, size=Q, links=acct.link_names(depth))
+        # depth 2 probes the flat sync, deeper trees the cascade's
+        # per-boundary payloads (the same codec streams)
+        self._probe = (acct.make_sync_probe(self.hfl, self._codec) if depth == 2
+                       else acct.make_hier_sync_probe(self.hfl, self._codec))
         self._ab = {"dense": acct.access_bits("dense-f32", Q, 0.0)}
         for ti, tc in enumerate(self.hfl.tiers):
             ul_l, dl_l = acct.boundary_links(ti)
@@ -503,12 +586,15 @@ class SimEngine:
             "residency": (self.residency.policy if self.residency is not None
                           else "static"),
         }
-        if self.fleet.trace is not None:
+        if self.fleet is not None and self.fleet.trace is not None:
             meta["trace_replay"] = True
             meta["trace_duration_s"] = self.fleet.trace.duration
         if self.ledger is not None:
             meta["codec"] = self.ledger.codec
             meta["payload_size"] = self.ledger.size
+        if not self.wireless:
+            meta["wireless"] = False
+            return meta
         comp_max = float(
             self.sim.base_compute_s * self.fleet.compute_mult.max())
         pb = self._payload_overrides()
@@ -536,6 +622,10 @@ class SimEngine:
         expressions (bit-identical values); only the Alg. 2 sub-carrier
         reclamation is a per-affected-cluster loop, skipped under
         ``rate_model='single'``."""
+        if not self.wireless:
+            return dict(iter_s=self.sim.base_compute_s, sync_s=0.0,
+                        mask=None, keep_clusters=None, dropped=0,
+                        participants=None, deadline_s=None)
         hfl, lp, H = self.hfl, self.lp, self.period
         aux = self._latency_aux()
         cid = self.fleet.cid
@@ -630,7 +720,7 @@ class SimEngine:
         the residency tracker and invalidate the cached radio pricing and
         round times. With ``sim.reprice_interval_s > 0`` motion is batched
         until the interval elapses (distance travelled is conserved)."""
-        if not self.fleet.mobile:
+        if self.fleet is None or not self.fleet.mobile:
             return
         if self.sim.reprice_interval_s > 0:
             self._move_accum += dt
@@ -788,8 +878,10 @@ class SimEngine:
 
     def _count_train(self, participants: int, clusters: int):
         """-> ``(ul_bits, dl_bits)`` charged to the access links this
-        launch."""
+        launch (zeros in null-wireless mode)."""
         self._train_launches += 1
+        if not self.wireless:
+            return 0.0, 0.0
         p = participants
         if self.ledger is not None:
             # measured mode charges the codec on synthetic exact-k payloads
@@ -812,6 +904,115 @@ class SimEngine:
         dl = lp.payload(hfl.tiers[1].phi_down)
         self._bits_fronthaul += ul + dl
         return ul, dl
+
+    def _count_sync_hier(self, top: int):
+        """Analytic fronthaul charge of one tiered-consensus boundary up to
+        tier ``top`` -> ``(ul_bits, dl_bits)``: each firing tier t prices
+        ``A_{t-1}`` child uplinks and ``A_t`` parent downlinks at that
+        boundary's link payloads (``latency.tier_payload_bits``)."""
+        self._sync_launches += 1
+        if not self.wireless:
+            return 0.0, 0.0
+        pb = tier_payload_bits(self.lp, self.hfl.tiers)
+        ul = dl = 0.0
+        for ti in range(1, top + 1):
+            ul_l, dl_l = boundary_links(ti)
+            ul += self.hfl.agg_count(ti - 1) * pb[ul_l]
+            dl += self.hfl.agg_count(ti) * pb[dl_l]
+        self._bits_fronthaul += ul + dl
+        return ul, dl
+
+    def _hier_sync_extra_s(self, top: int) -> float:
+        """Serial fronthaul time the tiers ABOVE the SBS ring add to one
+        boundary (tier 1's θ^U/θ^D already live in ``ctx['sync_s']``):
+        every extra hop ships its Ω payload pair over the fronthaul rate."""
+        if not self.wireless or top < 2:
+            return 0.0
+        aux = self._latency_aux()
+        pb = tier_payload_bits(self.lp, self.hfl.tiers)
+        extra = 0.0
+        for ti in range(2, top + 1):
+            ul_l, dl_l = boundary_links(ti)
+            extra += (pb[ul_l] + pb[dl_l]) / aux["fh_rate"]
+        return extra
+
+    def _count_sync_unit(self, utop: int, cut: int):
+        """Analytic fronthaul charge of ONE unit's cascade up to tier
+        ``utop``, the within-unit slice of ``_count_sync_hier``."""
+        self._sync_launches += 1
+        if not self.wireless:
+            return 0.0, 0.0
+        lp, tiers = self.lp, self.hfl.tiers
+
+        def width(j: int) -> int:  # tier-j aggregators per unit
+            out = 1
+            for k in range(j + 1, cut):
+                out *= tiers[k].fanout
+            return out
+
+        ul = dl = 0.0
+        for ti in range(1, utop + 1):
+            ul += width(ti - 1) * lp.payload(tiers[ti].phi_up)
+            dl += width(ti) * lp.payload(tiers[ti].phi_down)
+        self._bits_fronthaul += ul + dl
+        return ul, dl
+
+    def _count_sync_push(self, t: int):
+        """Analytic fronthaul charge of one async push across boundary
+        ``t``: the Ω uplink at the tier's ``phi_up``, the dense adoption
+        downlink (the child pulls the parent's whole reference)."""
+        self._sync_launches += 1
+        if not self.wireless:
+            return 0.0, 0.0
+        ul = self.lp.payload(self.hfl.tiers[t].phi_up)
+        dl = self.lp.payload(0.0)
+        self._bits_fronthaul += ul + dl
+        return ul, dl
+
+    def _measure_sync_hier(self, state, hbufs, top: int):
+        """The REAL per-boundary payloads of one tiered consensus (depth > 2
+        measured accounting) -> ``(sync_s, row_bits)``. The hier probe runs
+        the cascade's selection on the same ``(state, bufs)`` before the
+        in-place sync; its device counts come to the host in ONE copy.
+        Each boundary lands on ITS ledger links (``sbs_ul``/``mbs_dl``,
+        then ``t{t}_ul``/``t{t}_dl``); the sync time is re-priced from the
+        bits (each boundary a serial hop pair, its slowest child fanning
+        in over the fronthaul), and the post-consensus SBS->MU broadcast
+        ships each cluster's adopted tier-1 delta at its realized DL
+        rate."""
+        uls, dls = self._probe(state, hbufs, top)
+        counts = torch.cat([*uls, *dls]).cpu().numpy().astype(np.float64)
+        sizes = [int(b.numel()) for b in (*uls, *dls)]
+        parts = np.split(counts, np.cumsum(sizes)[:-1])
+        self._sync_launches += 1
+        aux = self._latency_aux()
+        row_bits = {}
+        ul_tot = dl_tot = sync_s = 0.0
+        for ti in range(1, top + 1):
+            ub, db = parts[ti - 1], parts[top + ti - 1]
+            ul_l, dl_l = boundary_links(ti)
+            u_rec = self.ledger.record(ul_l, float(ub.sum()), events=int(ub.size))
+            d_rec = self.ledger.record(dl_l, float(db.sum()), events=int(db.size))
+            ul_tot += u_rec
+            dl_tot += d_rec
+            sync_s += (float(ub.max()) / aux["fh_rate"]
+                       + float(db.max()) / aux["fh_rate"])
+            row_bits[f"bits_{ul_l}"] = u_rec
+            row_bits[f"bits_{dl_l}"] = d_rec
+        self._bits_fronthaul += ul_tot + dl_tot
+        # cluster n re-broadcasts its tier-1 aggregator's downlink; clusters
+        # mobility has emptied (dl_rate=inf) are charged neither
+        per_cluster = np.repeat(parts[top], self.hfl.tiers[1].fanout)
+        finite = np.isfinite(aux["dl_rates"])
+        t_bcast = np.where(finite, per_cluster / aux["dl_rates"], 0.0)
+        n_bcast = int(finite.sum())
+        if n_bcast:
+            self._bits_access += self.ledger.record(
+                "sbs_dl", float(per_cluster[finite].sum()), events=n_bcast)
+            sync_s += float(t_bcast[finite].max())
+        row_bits["bits_sync_bcast"] = (
+            float(per_cluster[finite].sum()) if n_bcast else 0.0)
+        return sync_s, row_bits
 
     def _count_sync_measured(self, ul_bits, dl_bits: float):
         """Record the REAL fronthaul payload bits of one sync event
@@ -843,10 +1044,14 @@ class SimEngine:
     ):
         H = self.period
         it = iter(batches)
-        trace = Trace(meta=self._meta())
+        trace = Trace(meta=self._meta(), record=self._record)
         t = 0.0
         ctx: dict = {}
         N = self.hfl.num_clusters
+        # depth > 2: the tiered sync threads its own side buffers and fires
+        # a variable-height boundary (hier_fire_top) each period
+        hier = bool(getattr(sync_step, "hier", False))
+        hbufs = sync_step.init_bufs(state) if hier else None
         for step in range(num_steps):
             if step % H == 0:
                 # the virtual clock feeds the diurnal availability curve
@@ -864,12 +1069,26 @@ class SimEngine:
             t += ctx["iter_s"]
             self._count_train(ctx["participants"],
                               ctx.get("active_clusters", N))
-            trace.add(kind="train", t=t, step=step,
-                      loss=float(loss.float().mean()), dropped=ctx["dropped"])
+            if self._record:
+                trace.add(kind="train", t=t, step=step,
+                          loss=float(loss.float().mean()),
+                          dropped=ctx["dropped"])
             if (step + 1) % H == 0:
                 sync_s = ctx["sync_s"]
                 row_extra = {}
-                if self.ledger is not None:
+                if hier:
+                    top = sync_step.fire_top((step + 1) // H)
+                    row_extra = {"tier": int(top)}
+                    if self.ledger is not None:
+                        # the cascade's REAL per-boundary payloads, measured
+                        # before the in-place sync, re-price the boundary
+                        sync_s, row_bits = self._measure_sync_hier(
+                            state, hbufs, top)
+                        row_extra.update(row_bits)
+                    else:
+                        self._count_sync_hier(top)
+                        sync_s += self._hier_sync_extra_s(top)
+                elif self.ledger is not None:
                     # measure the REAL fronthaul payloads this sync sends
                     # (before the in-place sync consumes the state) and
                     # re-price θ^U/θ^D from the actual bit counts
@@ -896,7 +1115,10 @@ class SimEngine:
                                  "bits_sync_bcast": n_bcast * dl_b}
                 else:
                     self._count_sync(N)
-                state = sync_step(state)
+                if hier:
+                    state, hbufs = sync_step(state, hbufs, top)
+                else:
+                    state = sync_step(state)
                 t += sync_s
                 trace.add(kind="sync", t=t, step=step, dropped=ctx["dropped"],
                           deadline_s=ctx["deadline_s"], iter_s=ctx["iter_s"],
@@ -916,6 +1138,9 @@ class SimEngine:
         if self._crt is not None:
             return self._crt
         N = self.hfl.num_clusters
+        if not self.wireless:
+            self._crt = np.full(N, self.period * self.sim.base_compute_s)
+            return self._crt
         aux = self._latency_aux()
         # compute follows the DATA: with a residency tracker the round's
         # trainers are the resident shards' host MUs
@@ -945,7 +1170,7 @@ class SimEngine:
         hfl = self.hfl
         N, H = hfl.num_clusters, self.period
         rounds = num_steps // H
-        trace = Trace(meta=self._meta())
+        trace = Trace(meta=self._meta(), record=self._record)
         if rounds == 0:
             trace.meta.update(self._totals())
             return state, trace
@@ -1099,5 +1324,190 @@ class SimEngine:
             if ev.round + 1 < rounds:
                 q.push(t + self._cluster_round_time(n, comp),
                        Event("cluster_done", cluster=n, round=ev.round + 1))
+        trace.meta.update(self._totals())
+        return state, trace
+
+    # --- mixed-discipline hierarchy: async boundaries above a cut ----------
+
+    def _run_units(self, state, train_step, sync_step, batches, num_steps,
+                   on_step, on_async_sync=None, *, cut: int):
+        """Tier-recursive async scheduler (the reference's ``_run_units``):
+        every boundary at or above ``cut`` runs clock-free, everything below
+        stays lockstep. The subtree under one tier-``cut-1`` aggregator is a
+        scheduling **unit**: it runs tier-1 rounds on its own clock (H
+        iterations of ITS clusters, then its within-unit cascade of
+        boundaries 1..cut-1 at their lockstep cadences) and every
+        ``prod(tiers[2..cut].period)`` unit rounds pushes its reference
+        across the cut with a staleness-discounted weight (``async_weight``
+        over the ``tiers[cut].fanout`` siblings). A push landing on a parent
+        may cascade further up: boundary t > cut fires after every
+        ``tiers[t].period`` pushes the parent receives."""
+        from repro_torch.core.hfl import hier_fire_top
+
+        hfl = self.hfl
+        tiers = hfl.tiers
+        T = len(tiers)
+        if self.residency is not None or self._oversub:
+            raise ValueError(
+                "async tier boundaries do not support residency "
+                "tracking or oversubscribed fleets yet")
+        if self.ledger is not None:
+            raise ValueError(
+                "payload_accounting='measured' is not supported above an "
+                "async tier boundary at depth > 2 yet: the hier probe "
+                "mirrors the synchronous cascade, not per-unit push "
+                "payloads")
+        H = self.period
+        N = hfl.num_clusters
+        U = hfl.agg_count(cut - 1)  # async units (tier cut-1 aggregators)
+        G = N // U                  # clusters per unit
+        Hc = 1  # unit rounds between cut pushes
+        for ti in range(2, cut + 1):
+            Hc *= tiers[ti].period
+        mpc = hfl.mus_per_cluster
+        rounds = num_steps // H
+        trace = Trace(meta=self._meta(), record=self._record)
+        trace.meta["hier_depth"] = T
+        if rounds == 0:
+            trace.meta.update(self._totals())
+            return state, trace
+        it = iter(batches)
+        q = EventQueue()
+        bufs = sync_step.init_bufs(state)
+        unit_sync, push = sync_step.unit_ops(cut)
+        fleet = self.fleet
+        comp = (fleet.compute_times(self.sim.base_compute_s)
+                if fleet is not None else None)
+
+        def unit_rt(u: int) -> float:
+            crt = self._cluster_round_times(comp)
+            return float(crt[u * G:(u + 1) * G].max())
+
+        def timed(fn, st, *args):
+            """fn(st, bufs, *args) -> (state, bufs, wall seconds or None)."""
+            if on_async_sync is None:
+                return (*fn(st, bufs, *args), None)
+            _wait(st)
+            t0 = time.perf_counter()
+            st, b = fn(st, bufs, *args)
+            _wait(st)
+            return st, b, time.perf_counter() - t0
+
+        for u in range(U):
+            q.push(unit_rt(u), Event("unit_done", cluster=u, round=0))
+        # per-boundary bookkeeping (boundaries cut..T-1): pushes LANDED per
+        # parent, each child's parent-counter at its last pull, and (above
+        # the cut) pushes a parent has received since it last fired upward
+        updates = {tb: [0] * hfl.agg_count(tb) for tb in range(cut, T)}
+        last_pull = {tb: [0] * hfl.agg_count(tb - 1) for tb in range(cut, T)}
+        pending = {tb: [0] * hfl.agg_count(tb - 1) for tb in range(cut + 1, T)}
+        steps_done = 0
+        n_syncs = 0
+        fleet_time = 0.0
+        fault = getattr(self.sim, "fault_dead_cluster", None)
+        while len(q):
+            t, ev = q.pop()
+            u = ev.cluster
+            if fleet is not None and fleet.mobile:
+                self._advance_fleet(t - fleet_time)
+                fleet_time = t
+            self._vt = t
+            avail = (fleet.draw_available(t)
+                     if fleet is not None and fleet.dropout > 0 else None)
+            if fault is not None and fleet is not None:
+                if avail is None:
+                    avail = np.ones(fleet.K, bool)
+                avail = avail & (fleet.cid != fault)
+            slots = slice(u * G * mpc, (u + 1) * G * mpc)
+            if self.selector is not None:
+                if avail is None:
+                    avail = np.ones(fleet.K, bool)
+                # the policy runs over THIS unit's clusters at ITS round time
+                sel = self.selector.select(avail, fleet, t,
+                                           clusters=range(u * G, (u + 1) * G))
+                avail = avail.copy()
+                avail[slots] = sel[slots]
+            unit_clusters = np.zeros(N, bool)
+            unit_clusters[u * G:(u + 1) * G] = True
+            mask = None
+            dropped = 0
+            if avail is not None:
+                mask = None if avail.all() else avail
+                dropped = int((~avail[slots]).sum())
+            # the unit's clusters with a participant train; every other
+            # row stays as it was
+            keep = unit_clusters
+            if mask is not None:
+                keep = unit_clusters & mask.reshape(N, mpc).any(axis=1)
+            participants = (int(avail[slots].sum()) if avail is not None
+                            else G * mpc)
+            # step-indexed LR schedules follow THIS unit's round progress
+            state = state._replace(step=ev.round * H)
+            loss = None
+            for _ in range(H):
+                batch = self._apply_participation(next(it), mask)
+                state, loss = train_step(state, batch, keep=keep)
+                steps_done += 1
+                self._count_train(participants, int(keep.sum()))
+            # within-unit consensus: boundaries 1..utop at their lockstep
+            # cadences, capped below the cut
+            utop = min(hier_fire_top(tiers, ev.round + 1), cut - 1)
+            if utop >= 1:
+                state, bufs, secs = timed(unit_sync, state, u, utop)
+                s_ul, s_dl = self._count_sync_unit(utop, cut)
+                n_syncs += 1
+                if on_async_sync is not None:
+                    on_async_sync(dict(kind="unit_sync", index=n_syncs,
+                                       unit=int(u), tier=int(utop), agg=int(u),
+                                       round=int(ev.round), seconds=secs,
+                                       bits_ul=s_ul, bits_dl=s_dl), state)
+            if utop >= 1 and self._record:  # the unit's loss: a host sync
+                loss_u = float(loss.float().mean() if loss.dim() == 0
+                               else loss[u * G:(u + 1) * G].float().mean())
+                trace.add(kind="sync", t=t, step=steps_done - 1,
+                          tier=int(utop), edge=int(u), round=int(ev.round),
+                          dropped=dropped, loss=loss_u,
+                          bits_ul=s_ul, bits_dl=s_dl)
+            if (ev.round + 1) % Hc == 0:
+                # the push across the cut, cascading up through the counted
+                # boundaries above it: staleness counts the updates siblings
+                # landed on the parent since this child last pulled
+                a, tb = u, cut
+                while tb < T:
+                    p = a // tiers[tb].fanout
+                    staleness = updates[tb][p] - last_pull[tb][a]
+                    w = async_weight(staleness, tiers[tb].fanout,
+                                     self.sim.staleness_exp)
+                    state, bufs, secs = timed(push, state, tb, a, w)
+                    updates[tb][p] += 1
+                    last_pull[tb][a] = updates[tb][p]
+                    r_ul, r_dl = self._count_sync_push(tb)
+                    n_syncs += 1
+                    if self.wireless:
+                        t += (r_ul + r_dl) / self._latency_aux()["fh_rate"]
+                    trace.add(kind="sync", t=t, step=steps_done - 1,
+                              tier=int(tb), edge=int(a), round=int(ev.round),
+                              staleness=int(staleness), weight=float(w),
+                              bits_ul=r_ul, bits_dl=r_dl)
+                    if on_async_sync is not None:
+                        on_async_sync(dict(kind="push", index=n_syncs,
+                                           unit=int(u), tier=int(tb),
+                                           agg=int(a), round=int(ev.round),
+                                           staleness=int(staleness),
+                                           weight=float(np.float32(w)),
+                                           seconds=secs, bits_ul=r_ul,
+                                           bits_dl=r_dl), state)
+                    if tb + 1 >= T:
+                        break
+                    pend = pending[tb + 1]
+                    pend[p] += 1
+                    if pend[p] % tiers[tb + 1].period != 0:
+                        break
+                    a, tb = p, tb + 1
+            if on_step is not None:
+                on_step(steps_done - 1, state, loss)
+            if ev.round + 1 < rounds:
+                q.push(t + unit_rt(u),
+                       Event("unit_done", cluster=u, round=ev.round + 1))
         trace.meta.update(self._totals())
         return state, trace

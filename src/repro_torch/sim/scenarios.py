@@ -1,9 +1,8 @@
 """Named scenario registry for the HCN simulator: the port of
 ``repro.sim.scenarios``, the whole registry copied.
 
-The port runs every depth-2 scenario. ``build_engine`` raises for the
-two depth-3 ones, ``hier-3tier`` and ``hier-deadline``, naming the ROADMAP
-item that ports what they need (Queue 1 item 13: depth > 2).
+The port runs every scenario, the two depth-3 ones (``hier-3tier``,
+``hier-deadline``) included.
 
 Each scenario bundles a ``SimConfig`` (fleet + discipline knobs) with the
 ``HFLConfig`` overrides that make it meaningful, so
@@ -303,10 +302,9 @@ def apply_hfl_overrides(scn: Scenario, hfl_cfg: HFLConfig) -> HFLConfig:
 
 def unported(sim: SimConfig, hfl_cfg: HFLConfig) -> Optional[str]:
     """What of the port is still missing for a run -> the message, or
-    None when the port runs it."""
-    if len(hfl_cfg.tiers) > 2:
-        return ("depth > 2 hierarchies in the simulator (the tiered sync, "
-                "_run_units) are not ported yet: ROADMAP Queue 1 item 13")
+    None when the port runs it: None for every scenario of the registry
+    (telemetry, ROADMAP Queue 1 item 14, raises where ``SimConfig.obs``
+    is read)."""
     return None
 
 
@@ -347,7 +345,7 @@ def build_engine(
     for a training scenario. ``seed``/``trace_file``/``residency``
     override the scenario's ``SimConfig`` (the train CLI's
     ``--sim-seed``/``--trace-in``/``--residency``). What the port does not
-    run yet raises (``unported``)."""
+    run yet would raise here (``unported``: nothing of the registry)."""
     assert scn.kind == "train", f"{scn.name} is a sampling scenario"
     sim = scn.sim
     over = {}

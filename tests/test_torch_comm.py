@@ -364,10 +364,25 @@ def test_sync_probe_dense_is_static():
     assert tdl == jdl == 32.0 * 3000
 
 
-def test_sync_probe_depth3_not_ported():
-    cfg = THFLConfig(tiers=((2, 1), (2, 2), (2, 2)))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tacc.make_sync_probe(cfg, "bitmap")
+def test_sync_probe_depth3_matches_reference():
+    """On a depth-3 config ``make_sync_probe`` probes the flat sync over all
+    N = 4 clusters with tier 1's φ and β, as the reference's does (the
+    tiered cascade's own probe is ``make_hier_sync_probe``)."""
+    kw = dict(tiers=((1, 1, 0.99, 0.9), (2, 1, 0.9, 0.9, 0.4, 0.3), (2, 2)),
+              omega_impl="hist")
+    jcfg, tcfg = JHFLConfig(**kw), THFLConfig(**kw)
+    params = {"a": jnp.zeros((40, 50)), "b": jnp.zeros((1000,))}
+    state = jhfl.hfl_init(params, JSGDM(momentum=0.0), jcfg)
+    rng = np.random.default_rng(3)
+    state = state._replace(params=jax.tree.map(lambda p: jnp.asarray(
+        np.asarray(p) + 0.1 * rng.standard_normal(p.shape).astype(np.float32)),
+        state.params))
+    tstate = state_from_numpy(jax.tree.map(np.asarray, state), "cpu")
+    jul, jdl = jacc.make_sync_probe(jcfg, "delta-varint")(state)
+    tul, tdl = tacc.make_sync_probe(tcfg, "delta-varint")(tstate)
+    assert tul.shape == (4,)
+    np.testing.assert_array_equal(tul.numpy(), np.asarray(jul))
+    assert int(tdl) == int(jdl)
 
 
 # ---------------------------------------------------------------------------

@@ -145,9 +145,10 @@ def test_unported_flags_raise():
                  ["--metrics-out", "m.jsonl"], ["--ckpt-dir", "ckpt"]):
         with pytest.raises(SystemExit, match="not ported"):
             train.run(train.parse_args(argv + ["--device", "cpu"]))
-    # a scenario the port does not run yet names its ROADMAP item
+    # a sync the port does not build yet names its ROADMAP item
     with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP"):
-        train.run(train.parse_args(["--scenario", "hier-3tier", "--device", "cpu"]))
+        train.run(train.parse_args(["--flat-shards", "2", "--omega-impl", "fused",
+                                    "--device", "cpu"]))
 
 
 def test_kernel_wrappers_check_their_operands():

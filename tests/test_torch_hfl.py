@@ -150,8 +150,6 @@ def test_hfl_init_matches_reference():
 
 
 def test_unported_plans_raise_with_their_roadmap_item():
-    for kw in ({"tiers": ((2, 1), (2, 2), (2, 2))}, {"sync_layout": "leaf"},
-               {"flat_shards": 2}):
-        cfg = THFLConfig(**({"tiers": _tiers(2)} | kw))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            thfl.make_sync(thfl.SyncPlan(cfg))
+    cfg = THFLConfig(tiers=_tiers(2), flat_shards=2, omega_impl="fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
+        thfl.make_sync(thfl.SyncPlan(cfg))

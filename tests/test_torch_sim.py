@@ -1,5 +1,6 @@
-"""The simulator's depth-2 lockstep and deadline scenarios on the port
-against the reference: the same numpy seed, the same converted init and
+"""The simulator's lockstep and deadline scenarios (depth 2, and the
+depth-3 trees ``hier-3tier``/``hier-deadline``) on the port against the
+reference: the same numpy seed, the same converted init and
 the same ``SyntheticLM`` batches through ``repro.sim`` and
 ``repro_torch.sim``.
 
@@ -65,10 +66,11 @@ WREF_TOL = 0.25
 NARROW = dict(d_model=64, num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128,
               vocab_size=128)
 PORTED = ("paper-fig3", "stragglers", "mobility", "dropout",
-          "fault-dead-cluster", "diurnal", "prate-biased")
-UNPORTED = {"hier-3tier": "item 13", "hier-deadline": "item 13"}
+          "fault-dead-cluster", "diurnal", "prate-biased", "hier-3tier",
+          "hier-deadline")
 VIRTUAL = ("kind", "t", "step", "iter_s", "sync_s", "dropped", "deadline_s",
-           "bits_sbs_ul", "bits_mbs_dl", "bits_sync_bcast")
+           "tier", "bits_sbs_ul", "bits_mbs_dl", "bits_t2_ul", "bits_t2_dl",
+           "bits_sync_bcast")
 
 
 def _batches(vocab, N, local_b):
@@ -167,9 +169,11 @@ def test_scenario_replays_the_reference_timeline(name):
     _check_same_run(jtrace, ttrace, gap, tstate)
     if name in ("dropout", "fault-dead-cluster", "prate-biased"):
         assert any(r["dropped"] for r in ttrace.rows)  # the drop path ran
+    if name.startswith("hier-"):  # the root fires on the second boundary
+        assert [r["tier"] for r in ttrace.rows if r["kind"] == "sync"] == [1, 2]
 
 
-@pytest.mark.parametrize("name", ["paper-fig3", "dropout"])
+@pytest.mark.parametrize("name", ["paper-fig3", "dropout", "hier-3tier"])
 def test_measured_accounting_replays_the_reference_timeline(name):
     jtrace, ttrace, gap, tstate = _run_both(name, accounting="measured",
                                             codec="bitmap")
@@ -283,15 +287,6 @@ def test_participation_resample_rows_equal_the_reference():
         got = teng._apply_participation({"tokens": torch.from_numpy(toks)}, m)
         np.testing.assert_array_equal(got["tokens"].numpy(),
                                       np.asarray(want["tokens"]))
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_scenario_raises_naming_its_item(name):
-    scn = TS.get_scenario(name) if name != "scale-100k" else TS.SCENARIOS[name]
-    hfl = TS.apply_hfl_overrides(scn, THFLConfig(tiers=t_parse("2x2:H=2")))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 {UNPORTED[name]}"):
-        TS.build_engine(scn, hfl)
 
 
 def test_cli_runs_a_scenario_on_cpu():
