@@ -125,8 +125,28 @@ nonzero):
      (``scale-1m`` after moving its fleet one 600 s repricing interval
      on, since the run is shorter); each prints steady s/step, sync ms,
      peak memory, the virtual wall-clock and the drops (and, async, the
-     staleness and weight) per trace row;
-  8. one JSON line listing every ported kernel with its launches on each
+     staleness and weight) per trace row; ``hier-3tier`` also writes its
+     ``--trace-viz`` export and ``--metrics-out`` run log (into
+     ``build/chip_smoke_obs/``), which must validate, pass
+     ``tools/trace_summary.py --check`` (span bits = the tracer's books =
+     the ledger's on every tier boundary's links) and agree with the
+     registry's launch and ``comm.bits`` totals;
+  8. the obs path (``repro_torch.obs`` through the train CLI's flags):
+     (a) phase 7's paper-fig3 run again with ``--obs-health --trace-viz
+     --metrics-out --obs-heartbeat 1``: its losses bit for bit, virtual
+     wall clock and ``update_max``/``tail_hist`` launches equal to phase
+     7's, both steady s/step and their ratio, the health ingest's host
+     seconds per sync, no anomaly, the health counter tracks in the trace,
+     the outputs checked as hier-3tier's; (b) ``async`` (``2x2:H=2``,
+     ``OBS_LAYERS`` layers, measured ``delta-varint``) with
+     ``--obs-health --metrics-out``: per-cluster statistics finite, the
+     ``sim.staleness`` histogram per cluster, conservation exact, 2
+     launches per event, the peak; (c) scenario-free ``2x2:H=2`` at
+     ``OBS_LAYERS`` layers with ``--obs-hlo-cost --metrics-out``: the
+     first train step's and sync's flops, bytes and profiler launch
+     counts, the train flops beside 6 · params · tokens, the losses equal
+     to the same run without the flag;
+  9. one JSON line listing every ported kernel with its launches on each
      path (and their sum), error, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
@@ -173,6 +193,9 @@ HIER_LAYERS = 6
 HIER_DEADLINE_SEED = 0  # hier-deadline: the deadline drops an MU in both rounds
 ASYNC_ROOT = "2x2x4:H=2,2:async"  # the scenario-free async-root tree
 PEAK_LIMIT_GB = 76.0
+# the telemetry runs' --metrics-out / --trace-viz files (build/ is ignored)
+OBS_DIR = ROOT / "build" / "chip_smoke_obs"
+OBS_LAYERS = 6  # phase 8b's depth cut: async at 6 layers (see the docstring)
 MAIN_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
              "--log-every", "1", "--device", "cuda"]
@@ -304,6 +327,83 @@ def split_by_hop(outcomes, steps, n_mus, n_clusters, period):
             for ok in itertools.islice(it, n):
                 hops[hop]["kernel_pipeline" if ok else "exact_fallback"] += 1
     return hops
+
+
+def load_tool(name):
+    """``tools/<name>.py`` of the checkout, loaded by path (stdlib only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_{name}",
+                                                  ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_obs_outputs(name, args, out, eng):
+    """A telemetry run's outputs: the ``--metrics-out`` JSONL schema-valid;
+    the ``--trace-viz`` export valid and passing ``tools/trace_summary.py
+    --check`` (span bits = the tracer's books = the ledger's, per link);
+    the registry's launch and bit totals equal to the trace meta's and the
+    ledger's. -> what the JSON line reports."""
+    from repro_torch.obs import validate_runlog, validate_trace
+
+    errs = validate_runlog(args.metrics_out)
+    if errs:
+        raise AssertionError(f"obs {name}: run log {errs[:3]}")
+    kinds = {}
+    for line in Path(args.metrics_out).read_text().splitlines():
+        ev = json.loads(line)["event"]
+        kinds[ev] = kinds.get(ev, 0) + 1
+    info = {"events_by_kind": kinds}
+    if args.trace_viz:
+        obj = json.loads(Path(args.trace_viz).read_text())
+        validate_trace(obj)
+        if load_tool("trace_summary").main([args.trace_viz, "--check"]) != 0:
+            raise AssertionError(f"obs {name}: trace_summary --check failed")
+        info.update(trace_events=len(obj["traceEvents"]),
+                    dropped=obj["metadata"]["dropped_events"],
+                    link_bits=obj["metadata"]["link_bits"],
+                    counter_tracks=sorted({e["name"] for e in obj["traceEvents"]
+                                           if e.get("ph") == "C"}))
+    snap = out["telemetry"].registry.snapshot()
+    meta = out["trace"].meta
+    for k in ("train_launches", "sync_launches"):
+        if snap[f"sim.{k}"]["series"][""] != meta[k]:
+            raise AssertionError(f"obs {name}: registry {k} != trace meta")
+    if eng.ledger is not None:
+        comm = snap["comm.bits"]["series"]
+        for link, bits in eng.ledger.bits.items():
+            if eng.ledger.events[link] and comm.get(f"link={link}") != bits:
+                raise AssertionError(f"obs {name}: comm.bits {link} != ledger")
+        info["comm_bits"] = comm
+    return info
+
+
+class method_timer:
+    """Times every call of ``cls.name`` (the device waited on first, so a
+    call's own host time is measured) into ``self.seconds`` while active."""
+
+    def __init__(self, torch, cls, name):
+        self.torch, self.cls, self.name, self.seconds = torch, cls, name, []
+
+    def __enter__(self):
+        inner, timer = getattr(self.cls, self.name), self
+        self.inner = inner
+
+        def timed(*args, **kwargs):
+            timer.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            timer.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.cls, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.inner)
+        return False
 
 
 def free(torch):
@@ -1208,13 +1308,22 @@ def main(argv):
     free(torch)
 
     # ---- 7. the simulator's path -------------------------------------------
+    from repro_torch.obs import torchprof
+
+    def alloc_retries():
+        """The caching allocator's retries so far: each freed the cached
+        blocks and allocated again (a stall near the card's capacity)."""
+        return torchprof.device_memory_stats().get("num_alloc_retries", 0)
+
     # three scenario runs through the train CLI's build_engine + SimEngine.run
     # at full olmo-1b width; paper-fig3's 7 x 4 clusters at a depth cut (the
     # state of 7 full-depth clusters does not fit the card)
     from repro_torch.sim.scenarios import apply_hfl_overrides, get_scenario
 
     t7 = time.perf_counter()
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
     two = ["--tiers", f"{N_CLUSTERS}x2:H={PERIOD}"]
+    p7 = {}  # scenario -> its argv, losses, wall clock, launches, s/step
     sim_runs = (("paper-fig3", "pallas", ["--layers", str(FIG3_LAYERS),
                                           "--payload-accounting", "measured",
                                           "--codec", "delta-varint"]),
@@ -1232,7 +1341,10 @@ def main(argv):
                 # depth cut: 4 clusters' state and the tier buffers
                 ("hier-3tier", "pallas", ["--layers", str(HIER_LAYERS),
                                           "--payload-accounting", "measured",
-                                          "--codec", "delta-varint"]),
+                                          "--codec", "delta-varint", "--trace-viz",
+                                          str(OBS_DIR / "hier-3tier.json"),
+                                          "--metrics-out",
+                                          str(OBS_DIR / "hier-3tier.jsonl")]),
                 ("hier-deadline", "pallas", ["--layers", str(HIER_LAYERS),
                                              "--sim-seed", str(HIER_DEADLINE_SEED)]),
                 (ASYNC_ROOT, "pallas", ["--layers", str(HIER_LAYERS)]))
@@ -1280,11 +1392,12 @@ def main(argv):
 
     for name, impl, extra in sim_runs:
         scenario = name != ASYNC_ROOT  # the async root runs without a scenario
-        args = train.parse_args(
-            (["--full", "--scenario", name] if scenario
-             else ["--full", "--tiers", name])
-            + ["--omega-impl", impl, "--batch-per-mu", "4", "--seq", "128",
-               "--steps", str(STEPS), "--log-every", "1", "--device", "cuda"] + extra)
+        argv = ((["--full", "--scenario", name] if scenario
+                 else ["--full", "--tiers", name])
+                + ["--omega-impl", impl, "--batch-per-mu", "4", "--seq", "128",
+                   "--steps", str(STEPS), "--log-every", "1", "--device", "cuda"]
+                + extra)
+        args = train.parse_args(argv)
         hfl_s = HFLConfig(tiers=parse_tiers_spec(args.tiers or "4x2:H=4"))
         if scenario:
             scn = get_scenario(name)
@@ -1405,11 +1518,13 @@ def main(argv):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
+        retries0 = alloc_retries()
         out = train.run(args, on_sync=on_sync, wrap_train_step=wrap,
                         wrap_masked_step=wrap_masked)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
         peak = torch.cuda.max_memory_allocated()
+        retries = alloc_retries() - retries0
         last.clear()
         by_path[f"sim {name} {impl}"] = launches
         if not scenario:
@@ -1419,6 +1534,9 @@ def main(argv):
             continue
         trace, eng = out["trace"], out["engine"]
         meta = trace.meta
+        p7[name] = {"argv": argv, "hist": out["hist"], "wallclock": trace.wallclock,
+                    "launches": launches, "steady": out["timing"]["steady_s_per_step"],
+                    "peak_gb": peak / 1e9, "alloc_retries": retries}
         syncs_rows = [r for r in trace.rows if r["kind"] == "sync"]
         # every sync selects its rows' Ω once: N uplinks + 1 downlink under
         # lockstep (and the measured probe again before it), 1 + 1 per async
@@ -1447,7 +1565,7 @@ def main(argv):
                 "steady_s_per_step": out["timing"]["steady_s_per_step"],
                 "first_step_s": out["timing"]["compile_s"],
                 "sync_ms": [1e3 * x for x in out["sync_s"]],
-                "max_memory_allocated_gb": peak / 1e9,
+                "max_memory_allocated_gb": peak / 1e9, "alloc_retries": retries,
                 "virtual_wallclock_s": trace.wallclock,
                 "dropped_by_row": [r["dropped"] for r in trace.rows],
                 "launches": launches, "launches_want": want, "card": smi}
@@ -1540,6 +1658,9 @@ def main(argv):
                         and meta["events_sbs_ul"] == n_s * len(syncs_rows)
                         and meta["events_mbs_dl"] == len(syncs_rows)):
                     raise AssertionError(f"sim {name}: ledger and probe counts differ")
+        if args.trace_viz:  # the obs outputs of the run (hier-3tier)
+            emit({"phase": "sim_path_obs", "scenario": name,
+                  **check_obs_outputs(name, args, out, eng)})
         if name == "trace-replay" and not line["reassociated"]:
             raise AssertionError("sim trace-replay: no MU re-associated")
         if name == "scale-1m" and not line["reassociated_after_one_interval"]:
@@ -1548,7 +1669,167 @@ def main(argv):
     emit({"phase": "sim_path_done", "seconds": time.perf_counter() - t7})
     free(torch)
 
-    # ---- 8. kernel summary --------------------------------------------------
+    # ---- 8. the obs path ----------------------------------------------------
+    from repro_torch.obs.health.monitor import HealthMonitor
+
+    t8 = time.perf_counter()
+    obs_retries = [0]
+
+    def rows_identical(state):
+        return all(torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
+                   for n in range(1, P.shape[0]))
+
+    def obs_run(argv, monitor_method=None, on_sync=None):
+        """train.run(argv) on the card with the launch counts zeroed just
+        before and read just after -> (args, out, launches, peak bytes, host
+        seconds of each ``HealthMonitor.<monitor_method>`` call); the
+        allocator's retries (a full cache freed and allocated again) go to
+        ``obs_retries``."""
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        obs_retries[:] = [alloc_retries()]
+        args = train.parse_args(argv)
+        if monitor_method is None:
+            out, ingest = train.run(args, on_sync=on_sync), []
+        else:
+            with method_timer(torch, HealthMonitor, monitor_method) as mt:
+                out = train.run(args, on_sync=on_sync)
+            ingest = mt.seconds
+        torch.cuda.synchronize()
+        obs_retries[:] = [alloc_retries() - obs_retries[0]]
+        return (args, out, {k: fn.launches for k, fn in counters.items()},
+                torch.cuda.max_memory_allocated(), ingest)
+
+    def finite_losses(what, out):
+        if not (math.isfinite(out["eval_loss"])
+                and all(math.isfinite(l) for l in out["hist"])):
+            raise AssertionError(f"obs {what}: non-finite loss")
+
+    # 8a. paper-fig3 exactly as phase 7 ran it, with every telemetry flag on
+    p = p7["paper-fig3"]
+    identical = []
+    args, out, launches, peak, ingest = obs_run(
+        p["argv"] + ["--obs-health", "--trace-viz", str(OBS_DIR / "paper-fig3.json"),
+                     "--metrics-out", str(OBS_DIR / "paper-fig3.jsonl"),
+                     "--obs-heartbeat", "1"],
+        "ingest_sync_stats",
+        on_sync=lambda i, st, sec: identical.append(rows_identical(st)))
+    by_path["obs paper-fig3 pallas"] = launches
+    info = check_obs_outputs("paper-fig3", args, out, out["engine"])
+    hs = out["telemetry"].health.summary()
+    steady = out["timing"]["steady_s_per_step"]
+    emit({"phase": "obs_path", "run": "8a paper-fig3", "argv_added": [
+              "--obs-health", "--trace-viz", "--metrics-out", "--obs-heartbeat 1"],
+          "losses": out["hist"], "losses_equal_phase7": out["hist"] == p["hist"],
+          "virtual_wallclock_s": out["trace"].wallclock,
+          "steady_s_per_step": steady, "steady_s_per_step_phase7": p["steady"],
+          "steady_ratio_on_off": steady / p["steady"],
+          "alloc_retries": obs_retries[0], "alloc_retries_phase7": p["alloc_retries"],
+          "health_ingest_s_per_sync": ingest, "health_summary": hs,
+          "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+          "rows_identical_after_sync": identical, "card": smi, **info})
+    if out["hist"] != p["hist"] or out["trace"].wallclock != p["wallclock"]:
+        raise AssertionError("obs paper-fig3: the losses or the virtual clock "
+                             "differ from the same run without telemetry")
+    for k in ("update_max", "tail_hist"):
+        if launches[k] != p["launches"][k]:
+            raise AssertionError(f"obs paper-fig3: {k} launched {launches[k]} "
+                                 f"times, {p['launches'][k]} without telemetry")
+    want_tracks = {"health.drift", "health.residual", "health.loss",
+                   "health.omega_overlap"}
+    if not (hs["anomalies"] == 0 and hs["signals"]
+            and want_tracks <= set(info["counter_tracks"])
+            and len(ingest) == len(identical) == STEPS // PERIOD and all(identical)):
+        raise AssertionError(f"obs paper-fig3: health {hs}, tracks "
+                             f"{info['counter_tracks']}, ingest {ingest}")
+    if peak / 1e9 >= PEAK_LIMIT_GB:
+        raise AssertionError(f"obs paper-fig3: peak {peak / 1e9:.2f} GB")
+    finite_losses("paper-fig3", out)
+    del out
+
+    # 8b. async (measured delta-varint, sparse downlink) with the health
+    # monitor: per-cluster statistics from the async sync at OBS_LAYERS
+    argv = (["--full", "--scenario", "async", "--omega-impl", "pallas",
+             "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
+             "--log-every", "1", "--device", "cuda", "--tiers",
+             f"{N_CLUSTERS}x2:H={PERIOD}", "--layers", str(OBS_LAYERS),
+             "--payload-accounting", "measured", "--codec", "delta-varint",
+             "--obs-health", "--metrics-out", str(OBS_DIR / "async.jsonl")])
+    args, out, launches, peak, ingest = obs_run(argv, "ingest_async_sync_stats")
+    by_path["obs async pallas"] = launches
+    info = check_obs_outputs("async", args, out, out["engine"])
+    snap = out["telemetry"].registry.snapshot()
+    syncs_rows = [r for r in out["trace"].rows if r["kind"] == "sync"]
+    stats = {k: snap[k]["series"] for k in (
+        "health.drift", "health.eps_norm", "health.resid_ratio",
+        "health.update_ratio", "health.staleness") if k in snap}
+    stale = snap.get("sim.staleness", {}).get("series", {})
+    emit({"phase": "obs_path", "run": "8b async", "layers": OBS_LAYERS,
+          "losses": out["hist"], "syncs": len(syncs_rows),
+          "virtual_wallclock_s": out["trace"].wallclock,
+          "steady_s_per_event": out["timing"]["steady_s_per_step"],
+          "health_ingest_s_per_sync": ingest, "health_stats": stats,
+          "staleness_histogram": stale, "health_summary":
+              out["telemetry"].health.summary(),
+          "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+          "card": smi, **info})
+    clusters = {f"cluster=c{n}" for n in range(N_CLUSTERS)}
+    if not (set(stats.get("health.drift", {})) == clusters
+            and all(math.isfinite(v) for series in stats.values()
+                    for v in series.values())
+            and set(stale) == clusters and len(ingest) == len(syncs_rows) > 0):
+        raise AssertionError(f"obs async: statistics {stats}, staleness {stale}")
+    want = 2 * len(syncs_rows)  # uplink and sparse downlink Ω per event
+    if launches["update_max"] != want or launches["tail_hist"] != want:
+        raise AssertionError(f"obs async: launches {launches}, want {want} each")
+    if peak / 1e9 >= PEAK_LIMIT_GB:
+        raise AssertionError(f"obs async: peak {peak / 1e9:.2f} GB")
+    finite_losses("async", out)
+    del out
+
+    # 8c. scenario-free --obs-hlo-cost: the first train step's and the first
+    # sync's flops, bytes and launches, counted as they run; the losses are
+    # those of the same run without the flag
+    argv = MAIN_ARGV + ["--omega-impl", "pallas", "--layers", str(OBS_LAYERS)]
+    _, plain, _, _, _ = obs_run(argv)
+    args, out, launches, peak, _ = obs_run(
+        argv + ["--obs-hlo-cost", "--metrics-out", str(OBS_DIR / "hlo_cost.jsonl")])
+    by_path["obs hlo-cost pallas"] = launches
+    costs = {}
+    for line in Path(args.metrics_out).read_text().splitlines():
+        rec = json.loads(line)
+        if rec["event"] == "hlo_cost":
+            costs[rec["fn"]] = {k: rec[k] for k in (
+                "flops", "hbm_bytes", "collective_bytes", "launches")}
+    cfg6 = dataclasses.replace(cfg, num_layers=OBS_LAYERS)
+    n_params = fl.spec_of(init_model(None, cfg6, device="meta")).total
+    tokens = N_CLUSTERS * 2 * 4 * 128  # clusters x MUs x batch x sequence
+    analytic = 6.0 * n_params * tokens
+    emit({"phase": "obs_path", "run": "8c hlo-cost", "layers": OBS_LAYERS,
+          "costs": costs, "params": n_params, "tokens": tokens,
+          "six_params_tokens": analytic,
+          "train_flops_over_6PT": costs.get("train_step", {}).get("flops", 0.0)
+          / analytic, "losses": out["hist"],
+          "losses_equal_without_flag": out["hist"] == plain["hist"],
+          "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+          "card": smi})
+    if set(costs) != {"train_step", "sync_step"} or not all(
+            c["flops"] >= 0 and c["launches"] > 0 for c in costs.values()):
+        raise AssertionError(f"obs hlo-cost: {costs}")
+    if out["hist"] != plain["hist"] or out["eval_loss"] != plain["eval_loss"]:
+        raise AssertionError("obs hlo-cost: counting the first calls changed "
+                             "the run")
+    want = (N_CLUSTERS + 1) * (STEPS // PERIOD)
+    if launches["update_max"] != want or launches["tail_hist"] != want:
+        raise AssertionError(f"obs hlo-cost: launches {launches}, want {want}")
+    finite_losses("hlo-cost", out)
+    del out, plain
+    emit({"phase": "obs_path_done", "seconds": time.perf_counter() - t8})
+    free(torch)
+
+    # ---- 9. kernel summary --------------------------------------------------
     meta = {
         "block_select": ("src/repro_torch/csrc/fused_sync.cu",
                          "src/repro/kernels/fused_sync/kernel.py:67"),

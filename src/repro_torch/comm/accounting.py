@@ -22,8 +22,9 @@
                             simulator prices with a nonzero
                             ``LatencyParams.index_bits``.
 
-Not ported yet: the ledger's live metrics mirror ``registry`` (ROADMAP
-Queue 1 item 14).
+With ``registry`` set, every ``PayloadLedger.record`` also feeds the
+``comm.bits`` / ``comm.payloads`` counters of that metrics registry,
+labelled by link.
 """
 from __future__ import annotations
 
@@ -77,13 +78,11 @@ class PayloadLedger:
     links: tuple = LINKS
     bits: Dict[str, float] = None
     events: Dict[str, int] = None
+    # live metrics mirror (repro_torch.obs): when set, every record() also
+    # feeds the ``comm.bits`` / ``comm.payloads`` counters, labelled by link
     registry: object = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
-        if self.registry is not None:
-            raise NotImplementedError(
-                "PayloadLedger(registry=...) is not ported yet: the metrics "
-                "registry comes with ROADMAP Queue 1 item 14")
         if self.bits is None:
             self.bits = {l: 0.0 for l in self.links}
         if self.events is None:
@@ -95,6 +94,9 @@ class PayloadLedger:
         b = float(bits)
         self.bits[link] += b
         self.events[link] += events
+        if self.registry is not None:
+            self.registry.counter("comm.bits").inc(b, link=link)
+            self.registry.counter("comm.payloads").inc(events, link=link)
         return b
 
     @property
@@ -180,7 +182,8 @@ def make_sync_probe(hfl_cfg, codec: "str | Codec"):
         wref, e, eps, ref_spec, _ = H._sync_buffers(state, N)
         ups = []
         down = H.flat_sync_payloads(hfl_cfg, state.params, wref, e.clone(),
-                                    eps.clone(), ref_spec, uplinks=ups)
+                                    eps.clone(), ref_spec,
+                                    on_up=lambda v, i: ups.append((v, i)))
         return ups, down
 
     def probe(state):

@@ -12,6 +12,8 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+from repro_torch.obs.config import ObsConfig
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -321,6 +323,7 @@ class SimConfig:
     # RNG draw, so all other clusters' trajectories are untouched); None
     # = no fault. Drives the dead/starved-cluster anomaly rule.
     fault_dead_cluster: Optional[int] = None
-    # observability: None keeps telemetry off; an enabled config raises
-    # until ROADMAP Queue 1 item 14 ports it (obs/telemetry.py)
-    obs: Optional[object] = None
+    # observability (repro_torch.obs): None keeps telemetry fully off — the
+    # engine resolves it to the shared null handle; an ObsConfig turns on
+    # spans, metrics and (health=True) the learning-health monitor
+    obs: Optional[ObsConfig] = None

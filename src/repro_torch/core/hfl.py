@@ -40,9 +40,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import sparsify as sp
+from repro_torch.obs.metrics import current_registry
 from repro_torch.utils import flatten as fl
 from repro_torch.utils.fp import axpy_, fma_f32, recip_f32
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+
+def _count_build(kind: str, **labels) -> None:
+    """Build-time bookkeeping into the ambient metrics registry: which
+    step builders ran, under which mode/layout/impl — the builders have no
+    telemetry handle to thread, and build time is off the hot path."""
+    reg = current_registry()
+    if reg.enabled:
+        reg.counter(f"hfl.{kind}_builds").inc(**labels)
 
 
 class HFLState(NamedTuple):
@@ -115,6 +125,7 @@ def make_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
     and ``step`` advances: the reference's vmapped step followed by
     ``sim.engine._merge_clusters``.
     """
+    _count_build("train_step", masked="no")
 
     def train_step(state: HFLState, batch, keep=None):
         lr = lr_schedule(state.step)
@@ -139,6 +150,7 @@ def make_masked_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
     (state, loss scalar)`` with ``batch_n`` leaves a single cluster's rows
     ``[localB, ...]``. Row n's params and optimizer state are updated in
     place; every other row stays bitwise as it was; ``step`` advances."""
+    _count_build("train_step", masked="yes")
 
     def train_step(state: HFLState, batch_n, n: int):
         lr = lr_schedule(state.step)
@@ -285,13 +297,13 @@ def _unpack_ref_outputs(state: HFLState, wref, e, s, ref_spec, eps_spec):
                           eps=fl.unpack_stacked(s, eps_spec))
 
 
-def flat_sync_payloads(hfl_cfg, params, wref, e, s, spec, uplinks=None):
+def flat_sync_payloads(hfl_cfg, params, wref, e, s, spec, on_up=None):
     """The payloads of one flat sync, formed in the buffers given: s [N, Q]
     holds eps and is left with the residuals s_n - sent_n, e holds the MBS
     error and is left with δ. The sync passes its live buffers, the sync
     probe (``comm.accounting``) scratch copies, so both select through the
-    same route. Each cluster's sent payload (values, indices as selected)
-    is appended to ``uplinks`` when given. -> the downlink (values,
+    same route. ``on_up(values, indices)`` sees each cluster's sent
+    payload as selected, in cluster order. -> the downlink (values,
     indices int64)."""
     impl = hfl_cfg.omega_impl
     wire = wire_format_of(hfl_cfg)
@@ -306,8 +318,9 @@ def flat_sync_payloads(hfl_cfg, params, wref, e, s, spec, uplinks=None):
         vals, idx = fops.select_topk_rows(s, sp.keep_count(Q, tier.phi_up))
         if wire:
             vals = _wire_round_rows(vals, wire)
-        if uplinks is not None:
-            uplinks.extend(zip(vals, idx))
+        if on_up is not None:
+            for v, i in zip(vals, idx):
+                on_up(v, i)
         # the reference's _scatter_rows clips pad indices (value 0) to Q-1
         idx = idx.long().clamp_max(Q - 1)
         acc = torch.zeros((Q,), dtype=torch.float32, device=s.device)
@@ -316,8 +329,7 @@ def flat_sync_payloads(hfl_cfg, params, wref, e, s, spec, uplinks=None):
     else:
         # whole-vector Ω uplinks; Σ sent in Python's left fold
         acc = torch.zeros((Q,), dtype=torch.float32, device=s.device)
-        _uplinks_(tier, impl, wire, s, acc,
-                  None if uplinks is None else lambda v, i: uplinks.append((v, i)))
+        _uplinks_(tier, impl, wire, s, acc, on_up)
     # MBS side: consensus + discounted error + Ω downlink
     _consensus_delta(e, acc, N, tier.beta_down)
     del acc
@@ -335,19 +347,28 @@ def _norm(x):
     return torch.linalg.vector_norm(x.float())
 
 
+# elements per column chunk of the drift statistics: N x 4M entries of
+# temporaries at a time, never a whole [N, leaf] copy
+_STATS_CHUNK = 1 << 22
+
+
 def _drift_stats(params):
-    """Per-cluster consensus drift ||w_n - w̄|| / ||w̄|| over the PRE-sync
-    models, leaf by leaf (w̄ = Σ w_n · f32(1/N), as XLA compiles the
-    mean); -> (drift [N], w̄'s norm)."""
+    """Per-cluster consensus drift ||w_n - w̄|| / ||w̄|| over the stacked
+    models (w̄ = Σ w_n · f32(1/N), as XLA compiles the mean), column chunk
+    by column chunk: w̄ exists one chunk at a time and the squares add up
+    in f64; -> (drift [N], w̄'s norm), f32."""
     leaves = tree_leaves(params)
     N = leaves[0].shape[0]
+    r = recip_f32(N)
     sq = torch.zeros((N,), dtype=torch.float64, device=leaves[0].device)
     wsq = torch.zeros((), dtype=torch.float64, device=leaves[0].device)
     for P in leaves:
-        x = P.reshape(N, -1).float()
-        wbar = x.sum(0).mul_(recip_f32(N))
-        sq += (x - wbar).double().square().sum(1)
-        wsq += wbar.double().square().sum()
+        X = P.reshape(N, -1)
+        for a in range(0, X.shape[1], _STATS_CHUNK):
+            x = X[:, a:a + _STATS_CHUNK].float()
+            wbar = x.sum(0).mul_(r)
+            sq += (x - wbar).double().square().sum(1)
+            wsq += wbar.double().square().sum()
     wnorm = wsq.sqrt()
     return (sq.sqrt() / wnorm.clamp_min(1e-30)).float(), wnorm.float()
 
@@ -374,17 +395,22 @@ def _make_flat_sync(hfl_cfg, collect_stats: bool = False):
 
     def flat_sync(state: HFLState):
         wref, e, s, ref_spec, eps_spec = _sync_buffers(state, N)
-        ups = [] if collect_stats else None
-        drift = _drift_stats(state.params)[0] if collect_stats else None
+        ul_idx = on_up = drift = None
+        if collect_stats:
+            drift = _drift_stats(state.params)[0]
+            # the uplinks' index sets only (int32: Q < 2^31), row by row
+            k = sp.keep_count(ref_spec.total, hfl_cfg.tiers[1].phi_up)
+            ul_idx = torch.empty((N, k), dtype=torch.int32, device=s.device)
+            rows = iter(ul_idx)
+            on_up = lambda v, i: next(rows).copy_(i)
         dvals, didx = flat_sync_payloads(hfl_cfg, state.params, wref, e, s,
-                                         ref_spec, uplinks=ups)
+                                         ref_spec, on_up=on_up)
         wref.index_add_(0, didx, dvals)  # new w_ref = w_ref + d
         e.index_add_(0, didx, -dvals)    # new e = δ - d
         state = _unpack_ref_outputs(state, wref, e, s, ref_spec, eps_spec)
         if not collect_stats:
             return state
-        return state, _flat_sync_stats(drift, s, e, wref, dvals,
-                                       torch.stack([i for _, i in ups]), didx)
+        return state, _flat_sync_stats(drift, s, e, wref, dvals, ul_idx, didx)
 
     return flat_sync
 
@@ -744,6 +770,8 @@ class HierSyncStep:
                 "for deeper hierarchies")
         if hfl_cfg.omega_impl not in ("topk", "hist", "pallas"):
             raise ValueError(hfl_cfg.omega_impl)
+        _count_build("sync_step", mode=hfl_cfg.sync_mode, layout="hier",
+                     impl=hfl_cfg.omega_impl)
         self.cfg = hfl_cfg
         self._wire = wire_format_of(hfl_cfg)
 
@@ -827,6 +855,8 @@ def make_sync(plan: SyncPlan):
         raise NotImplementedError("mesh syncs are not ported yet: "
                                   "ROADMAP Queue 1 item 16")
     mode = hfl_cfg.sync_mode
+    _count_build("sync_step", mode=mode, layout=layout,
+                 impl=hfl_cfg.omega_impl)
     if mode == "dense":
         sync = _make_dense_sync(hfl_cfg, plan.collect_stats)
     elif mode in ("sparse", "quantized_sparse"):

@@ -142,6 +142,22 @@ def check(rc: int, what: str) -> None:
                            f"cudaError {rc}")
 
 
+# observers of the hand-written kernels' launches (``launch.op_cost``):
+# each is called with the kernel's name and its operand and result bytes
+launch_observers: list = []
+
+
+def count_launch(fn, *tensors) -> None:
+    """One launch of wrapper ``fn``'s kernel: add one to ``fn.launches``
+    and pass the bytes of ``tensors`` (the launch's operands and results)
+    to every observer."""
+    fn.launches += 1
+    if launch_observers:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        for observe in launch_observers:
+            observe(fn.__name__, nbytes)
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)

@@ -65,7 +65,7 @@ def bitpack(mask):
     rc = _build.library().rt_bitpack(mask.data_ptr(), nb, out.data_ptr(),
                                      counts.data_ptr(), _build.stream_of(mask))
     _build.check(rc, "bitpack")
-    bitpack.launches += 1
+    _build.count_launch(bitpack, mask, out, counts)
     return out, counts
 
 

@@ -80,7 +80,7 @@ def update_max(u, v, g, sigma: float):
         u.data_ptr(), v.data_ptr(), g.data_ptr(), float(sigma), nb,
         uo.data_ptr(), vo.data_ptr(), bmax.data_ptr(), _build.stream_of(u))
     _build.check(rc, "update_max")
-    update_max.launches += 1
+    _build.count_launch(update_max, u, v, g, uo, vo, bmax)
     return uo, vo, bmax
 
 
@@ -124,7 +124,7 @@ def tail_hist(v, edges):
         v.data_ptr(), edges.data_ptr(), bins, nb, HIST_SLICES, ws.data_ptr(),
         counts.data_ptr(), _build.stream_of(v))
     _build.check(rc, "tail_hist")
-    tail_hist.launches += 1
+    _build.count_launch(tail_hist, v, edges, counts)
     return counts
 
 
@@ -162,7 +162,7 @@ def apply_mask(u, v, th):
         u.data_ptr(), v.data_ptr(), th.data_ptr(), u.shape[0],
         ghat.data_ptr(), uo.data_ptr(), vo.data_ptr(), _build.stream_of(u))
     _build.check(rc, "apply_mask")
-    apply_mask.launches += 1
+    _build.count_launch(apply_mask, u, v, th, ghat, uo, vo)
     return ghat, uo, vo
 
 

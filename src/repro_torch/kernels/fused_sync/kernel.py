@@ -55,7 +55,7 @@ def block_select(x, th, cap_blk: int, n: int):
         xf.data_ptr(), L, th.data_ptr(), cap_blk, n, nb, vals.data_ptr(),
         idx.data_ptr(), counts.data_ptr(), _build.stream_of(x))
     _build.check(rc, "block_select")
-    block_select.launches += 1
+    _build.count_launch(block_select, xf, th, vals, idx, counts)
     return vals, idx, counts
 
 

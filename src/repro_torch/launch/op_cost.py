@@ -1,0 +1,130 @@
+"""Flops, bytes and launches of one step call: the counterpart of
+``repro.launch.hlo_cost`` (an HLO text parser) behind ``obs.program_costs``.
+
+The reference lowers and compiles a jitted step without running it and
+walks the HLO. The port has no HLO and its steps update their state in
+place, so it counts a call while it RUNS (``op_costs``), with what each
+count means kept as close to ``hlo_cost``'s as eager PyTorch allows:
+
+  * ``flops``: the formulas of ``torch.utils.flop_counter``
+    (``FlopCounterMode``'s) on every dispatched op that has one — 2·M·N·K
+    per matrix product (forward and backward), as ``hlo_cost`` counts 2 ·
+    numel(result) · contracted size per ``dot``; elementwise work is not
+    counted by either. ``FlopCounterMode`` itself is not used: it
+    decomposes the ops it has no formula for (``silu_backward``), which
+    changes their rounding and so the run.
+  * ``hbm_bytes``: the operand and result bytes of every dispatched aten
+    op that does work (views and allocations move nothing), plus each
+    hand-written kernel launch's operands and results
+    (``kernels._build.count_launch``). These are unfused bytes, as
+    ``hlo_cost`` sums the top-level instructions' operands and results.
+  * ``launches``: on the card, the kernels ``torch.profiler`` sees run on
+    the device (copies and fills excluded); on the CPU, the dispatched
+    ops that do work.
+  * ``collective_bytes``: 0.0 (one process; the mesh path is not ported).
+
+Wrapping a call in these observers changes nothing it computes, so the
+train CLI (``--obs-hlo-cost``) counts the first real ``train_step`` and
+``sync_step`` of a run instead of an extra call that would perturb the
+state.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pytree_leaves
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.kernels import _build
+
+# ops that allocate or only re-label memory: no bytes, no launch
+_NO_WORK = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
+                      "new_empty_strided", "detach", "lift_fresh",
+                      "_to_copy_meta"))
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _pytree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+class _OpCounter(TorchDispatchMode):
+    """Per aten op that does work: its flops (where ``flop_registry`` has a
+    formula), its operand and result bytes, one op. Each op runs as it
+    would without the counter."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.nbytes = 0
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        formula = flop_registry.get(func.overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
+        if not (func.is_view or func.overloadpacket.__name__ in _NO_WORK):
+            self.nbytes += _nbytes((args, kwargs)) + _nbytes(out)
+            self.ops += 1
+        return out
+
+
+def _device_kernels(prof) -> int:
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def op_costs(fn, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` once under the counters -> ``(result,
+    {"flops", "hbm_bytes", "collective_bytes", "launches"})``; on the
+    card the device is waited on before and after the call."""
+    kernel_bytes = []
+    observe = lambda name, nbytes: kernel_bytes.append(nbytes)
+    on_card = any(isinstance(t, torch.Tensor) and t.is_cuda
+                  for t in _pytree_leaves((args, kwargs)))
+    counter = _OpCounter()
+    _build.launch_observers.append(observe)
+    try:
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                with counter:
+                    out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            launches = _device_kernels(prof)
+        else:
+            with counter:
+                out = fn(*args, **kwargs)
+            launches = counter.ops
+    finally:
+        _build.launch_observers.remove(observe)
+    return out, {"flops": float(counter.flops),
+                 "hbm_bytes": float(counter.nbytes + sum(kernel_bytes)),
+                 "collective_bytes": 0.0, "launches": int(launches)}
+
+
+class FirstCallCosts:
+    """Wraps a step: its FIRST call runs under ``op_costs`` and hands the
+    costs to ``report(costs)``; every call returns what the step returns.
+    Attributes of the step (``collect_stats``, ``hier``, ...) are read
+    through, so the engine treats the wrapper as the step itself."""
+
+    def __init__(self, fn, report):
+        self._fn, self._report, self._done = fn, report, False
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __call__(self, *args, **kwargs):
+        if self._done:
+            return self._fn(*args, **kwargs)
+        self._done = True
+        out, costs = op_costs(self._fn, *args, **kwargs)
+        self._report(costs)
+        return out

@@ -41,11 +41,28 @@ which runs the simulator's unit scheduler without a radio:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --tiers 2x2x4:H=2,2:async --steps 4 --batch-per-mu 2 --seq 32
 
-Observability (``--obs-*``, ``--trace-viz``, ``--metrics-out``),
+Observability (``repro_torch.obs``), the reference's flags and events:
+``--trace-viz out.json`` exports a Chrome/Perfetto trace of every
+simulator event on the virtual clock plus host-clock spans of the step
+calls (scenario runs); ``--metrics-out run.jsonl`` streams every console
+line as a structured JSONL event and appends the final metrics-registry
+snapshot, which ``tools/run_compare.py`` gates against a golden;
+``--obs-health`` turns on the learning-health monitor (per-cluster drift,
+residual and Ω-overlap statistics from the sync, staleness and
+participation fairness from the simulator, streaming anomaly rules);
+``--obs-heartbeat N`` prints events/s and the card's live bytes every N
+simulator events; ``--obs-hlo-cost`` counts the flops, bytes and launches
+of the first train step and the first sync step as they run
+(``launch.op_cost``). A run computes the same with telemetry on or off:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --scenario paper-fig3 --steps 4 --tiers 3x2:H=2 --batch-per-mu 1 \
+      --seq 16 --obs-health --trace-viz trace.json --metrics-out run.jsonl
+
 ``--flat-shards`` > 1 and checkpoints are not ported yet and raise, naming
-their ROADMAP item.
-``--layers N`` keeps the first N layers of the architecture (full width
-with ``--full``), so a configuration's state fits a card.
+their ROADMAP item. ``--layers N`` keeps the first N layers of the
+architecture (full width with ``--full``), so a configuration's state fits
+a card.
 """
 from __future__ import annotations
 
@@ -66,42 +83,16 @@ from repro_torch.core.hfl import (
 from repro_torch.core.schedule import run_hfl
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
+from repro_torch.launch.op_cost import FirstCallCosts
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models.transformer import forward, init_model
+from repro_torch.obs import ObsConfig, RunLogger, StepClock, make_telemetry
 from repro_torch.optim import SGDM, warmup_step_decay
 
 # flag -> ROADMAP item that ports it
 _NOT_PORTED = {
-    "trace_viz": "Queue 1 item 14 (observability)",
-    "metrics_out": "Queue 1 item 14 (observability)",
-    "obs_heartbeat": "Queue 1 item 14 (observability)",
-    "obs_hlo_cost": "Queue 1 item 14 (observability)",
-    "obs_health": "Queue 1 item 14 (observability)",
     "ckpt_dir": "Queue 1 item 17 (checkpoints)",
 }
-
-
-class StepClock:
-    """First completed step = warm-up (allocator, kernel build, cuBLAS
-    autotune); ``steady_s_per_step`` averages the steps after it."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-        self._t_first = None
-        self.steps = 0
-
-    def step(self) -> None:
-        self.steps += 1
-        if self._t_first is None:
-            self._t_first = time.perf_counter()
-
-    def summary(self) -> dict:
-        first = None if self._t_first is None else self._t_first - self.t0
-        steady = None
-        if self._t_first is not None and self.steps >= 2:
-            steady = (time.perf_counter() - self._t_first) / (self.steps - 1)
-        return {"steps": self.steps, "compile_s": first,
-                "steady_s_per_step": steady}
 
 
 def parse_args(argv=None):
@@ -162,11 +153,26 @@ def parse_args(argv=None):
                     choices=["static", "move", "duplicate", "stale"],
                     help="data residency policy as MUs re-associate "
                          "(overrides the scenario's)")
-    ap.add_argument("--trace-viz", default=None)
-    ap.add_argument("--metrics-out", default=None)
-    ap.add_argument("--obs-heartbeat", type=int, default=0)
-    ap.add_argument("--obs-hlo-cost", action="store_true")
-    ap.add_argument("--obs-health", action="store_true")
+    ap.add_argument("--trace-viz", default=None,
+                    help="export a Chrome/Perfetto trace-event JSON of the "
+                         "run (virtual-clock simulator spans + host-clock "
+                         "step calls). Scenario runs only.")
+    ap.add_argument("--metrics-out", default=None,
+                    help="stream structured run events as JSONL here "
+                         "(config, per-step losses, timing, sim summary, "
+                         "final metrics-registry snapshot)")
+    ap.add_argument("--obs-heartbeat", type=int, default=0,
+                    help="print an events/s + live-memory heartbeat to "
+                         "stderr every N simulator events (0 = off)")
+    ap.add_argument("--obs-hlo-cost", action="store_true",
+                    help="count the flops, bytes and launches of the first "
+                         "train step and the first sync step as they run")
+    ap.add_argument("--obs-health", action="store_true",
+                    help="learning-health monitor: per-cluster drift, "
+                         "residual norms and Ω overlap from the sync, "
+                         "staleness and participation fairness from the "
+                         "simulator, streaming anomaly rules; the run "
+                         "itself stays bit-identical")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; raises without a GPU) or cpu")
     return ap.parse_args(argv)
@@ -202,11 +208,19 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     may wrap the all-cluster and the one-cluster train step
     (instrumentation hooks). Returns hist (mean loss per step; the active
     cluster's per async event), eval_loss, timing, the per-sync seconds
-    and the simulator's trace and engine (None without ``--scenario``)."""
+    and the simulator's trace and engine (None without ``--scenario``),
+    and ``telemetry``, the run's telemetry handle."""
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(ROADMAP {item})")
+    obs_cfg = None
+    if (args.trace_viz or args.metrics_out or args.obs_heartbeat
+            or args.obs_hlo_cost or args.obs_health):
+        obs_cfg = ObsConfig(
+            trace_path=args.trace_viz, metrics_path=args.metrics_out,
+            heartbeat_events=args.obs_heartbeat,
+            hlo_cost=bool(args.obs_hlo_cost), health=bool(args.obs_health))
     scenario = None
     if args.scenario is not None:
         from repro_torch.sim.scenarios import apply_hfl_overrides, get_scenario
@@ -237,21 +251,40 @@ def run(args, *, on_sync=None, wrap_train_step=None,
                     flat_shards=args.flat_shards, wire_format=args.wire_format,
                     payload_accounting=args.payload_accounting,
                     codec=args.codec)
+    if scenario is not None:
+        hfl = apply_hfl_overrides(scenario, hfl)
+    N = hfl.num_clusters
+    log = RunLogger(args.metrics_out)
+    log.log(
+        "config",
+        f"[train] arch={cfg.name} clusters={N} "
+        f"mus/cluster={hfl.mus_per_cluster} H={hfl.tiers[1].period} "
+        f"sync={hfl.sync_mode} layout={hfl.sync_layout} "
+        f"omega={hfl.omega_impl} device={dev}"
+        + (f" scenario={scenario.name}" if scenario is not None else ""),
+        arch=cfg.name, clusters=N, mus_per_cluster=hfl.mus_per_cluster,
+        period=hfl.tiers[1].period, sync=hfl.sync_mode,
+        layout=hfl.sync_layout, omega=hfl.omega_impl,
+        payload_accounting=hfl.payload_accounting,
+        scenario=(scenario.name if scenario is not None else None),
+        steps=args.steps, seq=args.seq, batch_per_mu=args.batch_per_mu,
+        device=str(dev))
+    # the telemetry handle exists BEFORE the step builders run, so their
+    # build-time counters land in this run's registry (the engine adopts
+    # it; a run without a scenario holds it directly)
     engine = None
     if scenario is not None:
         from repro_torch.sim.scenarios import build_engine
 
-        hfl = apply_hfl_overrides(scenario, hfl)
         engine = build_engine(scenario, hfl, seed=args.sim_seed,
                               trace_file=args.trace_in,
-                              residency=args.residency)
-    N = hfl.num_clusters
-    print(f"[train] arch={cfg.name} clusters={N} "
-          f"mus/cluster={hfl.mus_per_cluster} H={hfl.tiers[1].period} "
-          f"sync={hfl.sync_mode} layout={hfl.sync_layout} "
-          f"omega={hfl.omega_impl} device={dev}"
-          + (f" scenario={scenario.name}" if scenario is not None else ""),
-          flush=True)
+                              residency=args.residency, obs=obs_cfg)
+        tele = engine.obs
+    else:
+        tele = make_telemetry(obs_cfg)
+    if tele.health.enabled:
+        # anomalies stream to the JSONL runlog as structured health events
+        tele.health.runlog = log
 
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_model(gen, cfg, device=dev)
@@ -263,13 +296,34 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     del params
     loss_fn = make_loss_fn(cfg)
     train_step = make_cluster_train_step(loss_fn, opt, sched)
+    # with --obs-health on a scenario run the sync also returns its health
+    # statistics: a depth-2 local-flat feature (deeper hierarchies run the
+    # tiered cascade, which rejects collect_stats)
+    collect = bool(args.obs_health and scenario is not None
+                   and args.sync_layout == "flat" and args.flat_shards == 1
+                   and hfl.depth == 2)
+    sync_step = make_sync(SyncPlan(hfl, collect_stats=collect))
+    if obs_cfg is not None and obs_cfg.hlo_cost:
+        # the port's steps update the state in place: count each step's
+        # FIRST real call instead of an extra one that would perturb the run
+        def report(fn):
+            def logged(c):
+                log.log("hlo_cost",
+                        f"[obs] {fn}: {c['flops']/1e9:.3f} GFLOP "
+                        f"{c['hbm_bytes']/1e6:.1f} MB HBM "
+                        f"{c.get('launches', 0)} launches", fn=fn, **c)
+            return logged
+
+        train_step = FirstCallCosts(train_step, report("train_step"))
+        sync_step = FirstCallCosts(sync_step, report("sync_step"))
     if wrap_train_step is not None:
         train_step = wrap_train_step(train_step)
-    # async rounds advance ONE cluster: the masked step trains only it
-    masked_step = make_masked_cluster_train_step(loss_fn, opt, sched)
-    if wrap_masked_step is not None:
-        masked_step = wrap_masked_step(masked_step)
-    sync_step = make_sync(SyncPlan(hfl))
+    masked_step = None
+    if engine is not None:
+        # async rounds advance ONE cluster: the masked step trains only it
+        masked_step = make_masked_cluster_train_step(loss_fn, opt, sched)
+        if wrap_masked_step is not None:
+            masked_step = wrap_masked_step(masked_step)
 
     sync_s = []
 
@@ -285,10 +339,12 @@ def run(args, *, on_sync=None, wrap_train_step=None,
         timed_sync = _TimedHier(sync_step, timed, sync_s, on_sync)
     else:
         def timed_sync(st):
-            st = timed(sync_step, st)
+            out = timed(sync_step, st)  # (state, stats) with collect_stats
             if on_sync is not None:
-                on_sync(len(sync_s), st, sync_s[-1])
-            return st
+                on_sync(len(sync_s), out[0] if collect else out, sync_s[-1])
+            return out
+
+        timed_sync.collect_stats = collect
 
     lm = SyntheticLM(cfg.vocab_size, seed=1)
     rng = np.random.default_rng(2)
@@ -308,9 +364,10 @@ def run(args, *, on_sync=None, wrap_train_step=None,
         clock.step()
         hist.append(l)
         if (t + 1) % args.log_every == 0:
-            ss = clock.summary()["steady_s_per_step"]
+            ss = clock.steady_s_per_step
             rate = ss if ss is not None else (time.perf_counter() - clock.t0) / clock.steps
-            print(f"  step {t+1:5d}  loss {l:.4f}  ({rate:.2f}s/step)", flush=True)
+            log.log("step", f"  step {t+1:5d}  loss {l:.4f}  ({rate:.2f}s/step)",
+                    step=t + 1, loss=l, s_per_step=rate, steady=ss is not None)
 
     def async_synced(event, st):
         sync_s.append(event["seconds"])
@@ -323,7 +380,13 @@ def run(args, *, on_sync=None, wrap_train_step=None,
                                   args.steps, on_step=on_step,
                                   masked_train_step=masked_step,
                                   on_async_sync=async_synced)
-        _sim_trailer(scenario, trace, args.trace_out)
+        _sim_trailer(log, scenario, trace, args.trace_out)
+        if args.trace_viz and tele.enabled:
+            tele.export_chrome(args.trace_viz,
+                               metadata={"engine_meta": _jsonable(trace.meta)})
+            log.log("trace_viz", f"[obs] chrome trace -> {args.trace_viz}",
+                    path=args.trace_viz, events=len(tele.tracer.events),
+                    dropped=tele.tracer.dropped)
     else:
         state = run_hfl(state, train_step, timed_sync, make_batches(),
                         hfl.tiers[1].period, args.steps, on_step,
@@ -332,11 +395,12 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     timing = clock.summary()
     if timing["steps"]:
         cs, ss = timing["compile_s"], timing["steady_s_per_step"]
-        print(f"[train] compile_s={cs:.2f}"
-              + (f"  steady={ss:.3f}s/step" if ss is not None
-                 else "  (one step; no steady-state sample)")
-              + "  sync_ms=" + ",".join(f"{1e3 * s:.1f}" for s in sync_s),
-              flush=True)
+        log.log("timing",
+                f"[train] compile_s={cs:.2f}"
+                + (f"  steady={ss:.3f}s/step" if ss is not None
+                   else "  (one step; no steady-state sample)")
+                + "  sync_ms=" + ",".join(f"{1e3 * s:.1f}" for s in sync_s),
+                **timing)
 
     with torch.no_grad():
         sp = serving_params(state)
@@ -346,13 +410,36 @@ def run(args, *, on_sync=None, wrap_train_step=None,
         lp = torch.log_softmax(logits[:, -args.seq:].float(), dim=-1)
         eval_loss = float(-torch.gather(lp[:, :-1], -1, toks[:, 1:, None]).mean())
     if hist:
-        print(f"[train] first-loss={hist[0]:.4f} last-loss={hist[-1]:.4f} "
-              f"eval-loss={eval_loss:.4f}", flush=True)
+        log.log("eval",
+                f"[train] first-loss={hist[0]:.4f} last-loss={hist[-1]:.4f} "
+                f"eval-loss={eval_loss:.4f}",
+                first_loss=hist[0], last_loss=hist[-1], eval_loss=eval_loss)
     else:
-        print(f"[train] no training rounds completed; eval-loss={eval_loss:.4f}",
-              flush=True)
+        log.log("eval", f"[train] no training rounds completed; "
+                f"eval-loss={eval_loss:.4f}", eval_loss=eval_loss)
+    if tele.health.enabled:
+        hs = tele.health.summary()
+        log.log("health_summary",
+                f"[health] anomalies={hs['anomalies']} "
+                f"by_rule={hs['by_rule'] or '{}'} "
+                f"signals={len(hs['signals'])}", **hs)
+    if tele.enabled:
+        snap = tele.registry.snapshot()
+        # histogram quantiles on the console (the full snapshot is
+        # JSONL-only below — it is large and structured)
+        for name, m in sorted(snap.items()):
+            if m.get("kind") != "histogram":
+                continue
+            for lbl, h in m["series"].items():
+                where = f"{{{lbl}}}" if lbl else ""
+                print(f"[obs] {name}{where}: n={h['count']} "
+                      f"p50={h['p50']:.4g} p95={h['p95']:.4g} "
+                      f"p99={h['p99']:.4g} max={h['max']:.4g}", flush=True)
+        log.log("metrics", None, metrics=snap)
+    log.close()
     return {"hist": hist, "eval_loss": eval_loss, "timing": timing,
-            "sync_s": sync_s, "trace": trace, "engine": engine}
+            "sync_s": sync_s, "trace": trace, "engine": engine,
+            "telemetry": tele}
 
 
 class _TimedHier:
@@ -380,31 +467,34 @@ class _TimedHier:
         return state, bufs
 
 
-def _sim_trailer(scenario, trace, trace_out) -> None:
-    """The reference's ``[sim]`` lines, and the trace JSON if asked."""
+def _sim_trailer(log, scenario, trace, trace_out) -> None:
+    """The reference's ``[sim]`` events, and the trace JSON if asked."""
     m = trace.meta
-    print(f"[sim] scenario={scenario.name} discipline={m['discipline']} "
-          f"residency={m['residency']} "
-          f"virtual-wallclock={trace.wallclock:.3f}s "
-          f"syncs={m['sync_launches']} "
-          f"fronthaul={m['bits_fronthaul_total']/8e6:.2f}MB", flush=True)
+    log.log("sim_summary",
+            f"[sim] scenario={scenario.name} discipline={m['discipline']} "
+            f"residency={m['residency']} "
+            f"virtual-wallclock={trace.wallclock:.3f}s "
+            f"syncs={m['sync_launches']} "
+            f"fronthaul={m['bits_fronthaul_total']/8e6:.2f}MB",
+            **_jsonable(m))
     if m.get("payload_accounting") == "measured":
         bpp = m.get("bits_per_param_mean")
-        print(f"[sim] measured payloads: codec={m['codec']} "
-              f"Q={m['payload_size']} "
-              f"sbs_ul={m['bits_sbs_ul']/8e6:.3f}MB "
-              f"mbs_dl={m['bits_mbs_dl']/8e6:.3f}MB "
-              + (f"bits/param={bpp:.3f}" if bpp is not None else ""),
-              flush=True)
-    print(f"[sim] t_fl_iter={m['t_fl_iter_s']:.3f}s "
-          f"t_hfl_iter={m['t_hfl_iter_s']:.3f}s "
-          f"t_hfl_period={m['t_hfl_period_s']:.3f}s "
-          f"(period<fl_iter: {m['t_hfl_period_s'] < m['t_fl_iter_s']})",
-          flush=True)
+        log.log("sim_measured",
+                f"[sim] measured payloads: codec={m['codec']} "
+                f"Q={m['payload_size']} "
+                f"sbs_ul={m['bits_sbs_ul']/8e6:.3f}MB "
+                f"mbs_dl={m['bits_mbs_dl']/8e6:.3f}MB "
+                + (f"bits/param={bpp:.3f}" if bpp is not None else ""))
+    if m.get("wireless"):
+        log.log("sim_latency",
+                f"[sim] t_fl_iter={m['t_fl_iter_s']:.3f}s "
+                f"t_hfl_iter={m['t_hfl_iter_s']:.3f}s "
+                f"t_hfl_period={m['t_hfl_period_s']:.3f}s "
+                f"(period<fl_iter: {m['t_hfl_period_s'] < m['t_fl_iter_s']})")
     if trace_out:
         with open(trace_out, "w") as f:
             json.dump(_jsonable(trace.to_json()), f, indent=1)
-        print(f"[sim] trace -> {trace_out}", flush=True)
+        log.log("trace_out", f"[sim] trace -> {trace_out}", path=trace_out)
 
 
 def main(argv=None):

@@ -73,9 +73,20 @@ top suffix (``_tier_disciplines``), whose units run on their own clocks
 Without ``topo``/``fleet``/``lp`` the engine runs in null-wireless mode:
 unit virtual time per iteration and no comms time, which is how
 ``core.schedule.run_hfl`` drives an async-root tree (``record=False``
-keeps no trace rows). Telemetry (ROADMAP Queue 1 item 14) is not ported:
-the reference's spans and health signals have no counterpart, the null
-path only.
+keeps no trace rows).
+
+Telemetry (``repro_torch.obs``, ``SimEngine(obs=...)`` or
+``SimConfig.obs``) is the reference's, emit site for emit site: virtual-
+clock spans of every iteration, phase, payload, sync, idle round and
+repricing (each ledger record mirrored by one ``link_span`` with the same
+float, so span/ledger conservation is exact at teardown), the ``sim.*``
+registry totals and fairness gauges, and the learning-health monitor's
+loss, round, sync-statistics and churn signals. Host-clock spans wrap the
+same step calls as the reference's: on the card a call returns once its
+kernels are queued, so a span measures dispatch unless the call waits on
+the card (a loss or a bit count copied to the host), as a jit dispatch
+does under JAX. Telemetry only reads the run: the state, the RNG streams
+and the virtual clock are the same with it on or off.
 """
 from __future__ import annotations
 
@@ -150,6 +161,10 @@ def async_weight(staleness: int, num_clusters: int, exp: float = 1.0) -> float:
     return (1.0 / num_clusters) * (1.0 + float(staleness)) ** (-float(exp))
 
 
+def _norm(x):
+    return torch.linalg.vector_norm(x.double()).float()
+
+
 def _scatter_row_(params, n: int, spec, idx, fn) -> None:
     """Row n of the stacked params at the flat positions ``idx`` (int64,
     distinct) becomes ``fn(old values as f32, positions in idx)``, cast back
@@ -189,7 +204,14 @@ def make_async_sync_step(
 
     With ``codec`` set, each call also returns a dict of device bit counts
     (``measure_bits_torch``) of the payloads sent: ``{"sbs_ul": ...}``
-    plus ``"mbs_dl"`` when the downlink is sparse. ``on_payloads(n,
+    plus ``"mbs_dl"`` when the downlink is sparse. With ``collect_stats``
+    it also returns (last) the health monitor's statistics of the cluster
+    that synced, 0-d tensors and index sets on the state's device:
+    ``drift`` (its row's consensus drift over the post-sync rows,
+    ``core.hfl._drift_stats``), ``eps_norm``, ``wref_norm``, ``update_norm`` (of
+    ``weight * sent``), ``ul_idx``, and with the sparse downlink
+    ``e_dl_norm`` and ``dl_idx``; the state is the same with them on or
+    off. ``on_payloads(n,
     uplink, downlink)`` (optional) receives each call's (values, indices)
     payloads, ``downlink`` None when dense.
 
@@ -203,13 +225,10 @@ def make_async_sync_step(
     passes ``jnp.float32(w)``) and fma(β_m, e_dl_n, w_ref' - w_n), so a
     call is bitwise the reference's jitted step on the CPU.
     """
-    if collect_stats:
-        raise NotImplementedError(
-            "collect_stats for the async sync (the health monitor's per-"
-            "cluster signals) is not ported yet: ROADMAP Queue 1 item 14")
     from repro_torch.core import sparsify as sp
     from repro_torch.core.hfl import (
-        _pack_drift, _sync_buffers, _wire_round_rows, wire_format_of,
+        _drift_stats, _pack_drift, _sync_buffers, _wire_round_rows,
+        wire_format_of,
     )
     from repro_torch.utils import flatten as fl
 
@@ -265,24 +284,38 @@ def make_async_sync_step(
                 P[n].copy_(wref[spec.leaf_slice(i)].reshape(P.shape[1:]))
         if on_payloads is not None:
             on_payloads(n, (vals, idx), down)
+        stats = None
+        if collect_stats:
+            # read-only over the buffers the sync just wrote
+            stats = {"drift": _drift_stats(state.params)[0][n],
+                     "eps_norm": _norm(s), "wref_norm": _norm(wref),
+                     "update_norm": _norm(vals * w), "ul_idx": idx}
+            if dl_sparse:
+                stats["e_dl_norm"] = _norm(e_dl[n])
+                stats["dl_idx"] = down[1]
         state = state._replace(w_ref=fl.unpack(wref, spec),
                                eps=fl.unpack_stacked(eps, eps_spec))
-        return state, e_dl, bits
+        return state, e_dl, bits, stats
+
+    def extras(bits, stats):  # (bits?, stats?) after the carried state
+        return (((bits,) if codec is not None else ())
+                + ((stats,) if collect_stats else ()))
 
     if dl_sparse:
 
         def async_sync_dl(state, e_dl, n, weight):
-            state, e_dl, bits = core(state, e_dl, n, weight)
-            return (state, e_dl) if codec is None else (state, e_dl, bits)
+            state, e_dl, bits, stats = core(state, e_dl, n, weight)
+            return (state, e_dl) + extras(bits, stats)
 
-        async_sync_dl.collect_stats = False
+        async_sync_dl.collect_stats = collect_stats
         return async_sync_dl
 
     def async_sync(state, n, weight):
-        state, _, bits = core(state, None, n, weight)
-        return state if codec is None else (state, bits)
+        state, _, bits, stats = core(state, None, n, weight)
+        out = extras(bits, stats)
+        return (state,) + out if out else state
 
-    async_sync.collect_stats = False
+    async_sync.collect_stats = collect_stats
     return async_sync
 
 
@@ -308,7 +341,8 @@ class SimEngine:
     ``topo``/``fleet``/``lp`` unset it runs in null-wireless mode (unit
     virtual time per iteration, zero comms time), as ``core.schedule.
     run_hfl`` does for an async-root tree; ``record=False`` keeps no
-    trace rows."""
+    trace rows. ``obs`` (a telemetry handle) wins over ``SimConfig.obs``:
+    callers sharing one tracer across runs pass it."""
 
     def __init__(
         self,
@@ -321,12 +355,16 @@ class SimEngine:
         lp: Optional[LatencyParams] = None,
         record: bool = True,
         residency=None,
+        obs=None,
     ):
         self._record = record
         self.period = int(period)
         self.hfl = hfl_cfg
         self.sim = sim_cfg if sim_cfg is not None else SimConfig()
-        self.obs = make_telemetry(self.sim.obs)  # raises for an enabled config
+        # telemetry: an explicit handle wins, else SimConfig.obs; the
+        # default is the shared NULL_TELEMETRY, whose ``enabled`` flag
+        # guards every emit site
+        self.obs = obs if obs is not None else make_telemetry(self.sim.obs)
         self.topo, self.fleet, self.lp = topo, fleet, lp
         self.wireless = topo is not None and fleet is not None and lp is not None
         # oversubscribed fleets: more physical MUs than training slots
@@ -370,6 +408,11 @@ class SimEngine:
         self._sync_launches = 0
         self._bits_access = 0.0
         self._bits_fronthaul = 0.0
+        # fleet-health bookkeeping (obs on only): per-cluster rounds seen /
+        # rounds contributed, feeding sim.participation_rate and the
+        # drop-fairness Gini at _finish_run
+        self._rounds_part = None
+        self._rounds_seen = None
         self._acc = (hfl_cfg.payload_accounting if hfl_cfg is not None
                      else "analytic")
         if self._acc not in ("analytic", "measured"):
@@ -435,6 +478,13 @@ class SimEngine:
         self._bits_access = 0.0
         self._bits_fronthaul = 0.0
         self._slot_rot = 0
+        if self.obs.enabled and self.hfl is not None:
+            n_cl = self.hfl.num_clusters
+            self._rounds_part = np.zeros(n_cl, np.int64)
+            self._rounds_seen = np.zeros(n_cl, np.int64)
+        else:
+            self._rounds_part = self._rounds_seen = None
+        self.obs.reset_run()
         hier = bool(getattr(sync_step, "hier", False))
         if hier and self.hfl is None:
             # null-wireless (core.schedule.run_hfl): the tiered sync's own
@@ -527,7 +577,8 @@ class SimEngine:
         Q = fl.spec_of(state.w_ref).total
         depth = len(self.hfl.tiers)
         self.ledger = acct.PayloadLedger(
-            codec=self._codec.name, size=Q, links=acct.link_names(depth))
+            codec=self._codec.name, size=Q, links=acct.link_names(depth),
+            registry=self.obs.registry if self.obs.enabled else None)
         # depth 2 probes the flat sync, deeper trees the cascade's
         # per-boundary payloads (the same codec streams)
         self._probe = (acct.make_sync_probe(self.hfl, self._codec) if depth == 2
@@ -706,6 +757,17 @@ class SimEngine:
             participants=int(mask.sum()),
             deadline_s=deadline_s,
         )
+        if self.obs.enabled:
+            # per-cluster phase decomposition for the trace viz (time
+            # only, clamped to surviving clusters; payload bits ride the
+            # link spans, one per ledger record)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                ctx["phases"] = {
+                    "surv": surv,
+                    "comp": np.where(surv > 0, comp_term, 0.0),
+                    "ul": np.where(surv > 0, ul_pay / min_rate, 0.0),
+                    "dl": np.where(surv > 0, aux["gamma_dl"], 0.0),
+                }
         if src is not None:
             # accounting charges the DISTINCT shards that actually train
             ctx["src"] = src
@@ -714,12 +776,16 @@ class SimEngine:
             ctx["active_clusters"] = int((src[:, 0] >= 0).sum())
         return ctx
 
-    def _advance_fleet(self, dt: float) -> None:
+    def _advance_fleet(self, dt: float, now: Optional[float] = None) -> None:
         """Advance positions (waypoint integration or trace replay),
         re-associate to the nearest SBS, propagate the new association to
         the residency tracker and invalidate the cached radio pricing and
         round times. With ``sim.reprice_interval_s > 0`` motion is batched
-        until the interval elapses (distance travelled is conserved)."""
+        until the interval elapses (distance travelled is conserved).
+        ``now`` is the virtual time of the triggering event: with telemetry
+        on, each effective advance lands as a ``reprice`` instant on the
+        fleet track carrying the covered motion and re-association
+        count."""
         if self.fleet is None or not self.fleet.mobile:
             return
         if self.sim.reprice_interval_s > 0:
@@ -727,12 +793,22 @@ class SimEngine:
             if self._move_accum < self.sim.reprice_interval_s:
                 return
             dt, self._move_accum = self._move_accum, 0.0
+        spans = self.obs.enabled and now is not None
+        old_cid = self.fleet.cid.copy() if spans else None
         self.fleet.advance(dt)
         self.fleet.reassociate()
         if self.residency is not None:
             self.residency.update(self.fleet.cid)
         self._aux = None  # positions changed: re-price the radio
         self._crt = None  # per-cluster round times follow the pricing
+        if spans:
+            moved = int((self.fleet.cid != old_cid).sum())
+            self.obs.tracer.instant(
+                "reprice", track="fleet", t=now,
+                args={"dt_s": dt, "reassociations": moved})
+            self.obs.registry.counter("sim.reprices").inc()
+            self.obs.registry.counter("sim.reassociations").inc(moved)
+            self.obs.health.ingest_churn(moved, t=now)
 
     # --- data residency ---------------------------------------------------
 
@@ -971,7 +1047,8 @@ class SimEngine:
 
     def _measure_sync_hier(self, state, hbufs, top: int):
         """The REAL per-boundary payloads of one tiered consensus (depth > 2
-        measured accounting) -> ``(sync_s, row_bits)``. The hier probe runs
+        measured accounting) -> ``(ul_bits, dl_bits, sync_s, bcast_bits,
+        legs, row_bits)``. The hier probe runs
         the cascade's selection on the same ``(state, bufs)`` before the
         in-place sync; its device counts come to the host in ONE copy.
         Each boundary lands on ITS ledger links (``sbs_ul``/``mbs_dl``,
@@ -979,13 +1056,16 @@ class SimEngine:
         bits (each boundary a serial hop pair, its slowest child fanning
         in over the fronthaul), and the post-consensus SBS->MU broadcast
         ships each cluster's adopted tier-1 delta at its realized DL
-        rate."""
+        rate. ``legs`` carries (link, bits, dur) span pairs holding exactly
+        the ledger-recorded floats, for the span/ledger conservation
+        check."""
         uls, dls = self._probe(state, hbufs, top)
         counts = torch.cat([*uls, *dls]).cpu().numpy().astype(np.float64)
         sizes = [int(b.numel()) for b in (*uls, *dls)]
         parts = np.split(counts, np.cumsum(sizes)[:-1])
         self._sync_launches += 1
         aux = self._latency_aux()
+        legs = []
         row_bits = {}
         ul_tot = dl_tot = sync_s = 0.0
         for ti in range(1, top + 1):
@@ -995,8 +1075,10 @@ class SimEngine:
             d_rec = self.ledger.record(dl_l, float(db.sum()), events=int(db.size))
             ul_tot += u_rec
             dl_tot += d_rec
-            sync_s += (float(ub.max()) / aux["fh_rate"]
-                       + float(db.max()) / aux["fh_rate"])
+            u_dur = float(ub.max()) / aux["fh_rate"]
+            d_dur = float(db.max()) / aux["fh_rate"]
+            sync_s += u_dur + d_dur
+            legs.append((ul_l, u_rec, u_dur, dl_l, d_rec, d_dur))
             row_bits[f"bits_{ul_l}"] = u_rec
             row_bits[f"bits_{dl_l}"] = d_rec
         self._bits_fronthaul += ul_tot + dl_tot
@@ -1006,13 +1088,15 @@ class SimEngine:
         finite = np.isfinite(aux["dl_rates"])
         t_bcast = np.where(finite, per_cluster / aux["dl_rates"], 0.0)
         n_bcast = int(finite.sum())
+        bcast_b = None
         if n_bcast:
-            self._bits_access += self.ledger.record(
+            bcast_b = self.ledger.record(
                 "sbs_dl", float(per_cluster[finite].sum()), events=n_bcast)
+            self._bits_access += bcast_b
             sync_s += float(t_bcast[finite].max())
         row_bits["bits_sync_bcast"] = (
             float(per_cluster[finite].sum()) if n_bcast else 0.0)
-        return sync_s, row_bits
+        return ul_tot, dl_tot, sync_s, bcast_b, legs, row_bits
 
     def _count_sync_measured(self, ul_bits, dl_bits: float):
         """Record the REAL fronthaul payload bits of one sync event
@@ -1036,6 +1120,113 @@ class SimEngine:
             out.update(self.ledger.summary())
         return out
 
+    def _finish_run(self) -> None:
+        """Engine teardown: final registry totals, then the span/ledger
+        payload-bit conservation bugcheck (measured accounting) — every
+        link's span bits must equal the ledger's total bit-for-bit."""
+        if not self.obs.enabled:
+            return
+        reg = self.obs.registry
+        reg.counter("sim.train_launches").inc(self._train_launches)
+        reg.counter("sim.sync_launches").inc(self._sync_launches)
+        reg.counter("sim.bits_access").inc(self._bits_access)
+        reg.counter("sim.bits_fronthaul").inc(self._bits_fronthaul)
+        part, seen = self._rounds_part, self._rounds_seen
+        if part is not None and int(seen.sum()) > 0:
+            rate = part / np.maximum(seen, 1)
+            for n in range(part.size):
+                reg.gauge("sim.participation_rate").set(
+                    float(rate[n]), cluster=f"c{n}")
+            # drop-fairness: Gini over rounds contributed (0 = every
+            # cluster trained equally often, ->1 = one cluster hogs)
+            x = np.sort(part.astype(np.float64))
+            k, tot = x.size, float(x.sum())
+            gini = 0.0 if tot <= 0 or k < 2 else float(
+                2.0 * np.sum(np.arange(1, k + 1) * x) / (k * tot)
+                - (k + 1) / k)
+            reg.gauge("sim.drop_gini").set(gini)
+        if self.ledger is not None:
+            self.obs.check_conservation(self.ledger)
+
+    def _mark_round(self, n: int, participated: bool, t: float) -> None:
+        """Per-cluster round outcome under async (obs on only): feeds the
+        participation/Gini tallies and the dead-cluster health signal."""
+        if self._rounds_seen is None:
+            return
+        self._rounds_seen[n] += 1
+        if participated:
+            self._rounds_part[n] += 1
+        self.obs.health.ingest_cluster_round(int(n), participated, t=t)
+
+    # --- span emission (telemetry on only; never touches sim state) ------
+
+    def _trace_train_step(self, step: int, t0: float, ctx: dict,
+                          ul_bits: float, dl_bits: float) -> None:
+        """Virtual-clock spans of one lockstep training iteration: the
+        engine-track iter span, per-cluster compute/UL/DL phase spans, and
+        the two access-link payload spans (bits = the ledger's floats)."""
+        tr = self.obs.tracer
+        dur = ctx["iter_s"]
+        tr.span("iter", track="engine", t0=t0, dur=dur,
+                args={"step": step, "dropped": ctx["dropped"],
+                      "participants": ctx["participants"]})
+        ph = ctx.get("phases")
+        if ph is not None:
+            for n in np.nonzero(ph["surv"] > 0)[0]:
+                tt = t0
+                for phase in ("comp", "ul", "dl"):
+                    d = float(ph[phase][n])
+                    tr.span(phase, track=f"cluster{int(n)}", t0=tt, dur=d)
+                    tt += d
+        if self.wireless:
+            tr.link_span("mu_ul", t0=t0, dur=dur, bits=ul_bits,
+                         name="train_ul",
+                         args={"participants": ctx["participants"]})
+            tr.link_span("sbs_dl", t0=t0, dur=dur, bits=dl_bits,
+                         name="train_dl")
+
+    def _trace_sync(self, step: int, t0: float, sync_s: float,
+                    ul_bits: float, dl_bits: float, bcast_bits,
+                    fh_parts, extra: dict, legs=None) -> None:
+        """Virtual-clock spans of one global consensus: the engine-track
+        sync span plus fronthaul UL/DL link spans and (measured mode) the
+        repriced SBS->MU broadcast span. ``fh_parts`` carries the measured
+        per-leg durations; the analytic path falls back to the aux θ's.
+        ``legs`` (depth > 2 measured) replaces the fixed fronthaul pair
+        with one tier-labelled span pair per cascade boundary, each
+        carrying exactly the ledger-recorded bits, laid out serially up
+        the tree."""
+        tr = self.obs.tracer
+        tr.span("sync", track="engine", t0=t0, dur=sync_s,
+                args={"step": step, **extra})
+        if not self.wireless:
+            return
+        if legs is not None:
+            tt = t0
+            for ul_l, ub, ud, dl_l, db, dd in legs:
+                tr.link_span(ul_l, t0=tt, dur=ud, bits=ub, name="sync_ul")
+                tt += ud
+                tr.link_span(dl_l, t0=tt, dur=dd, bits=db, name="sync_dl")
+                tt += dd
+            if bcast_bits is not None:
+                tr.link_span("sbs_dl", t0=tt,
+                             dur=max(sync_s - (tt - t0), 0.0),
+                             bits=bcast_bits, name="sync_bcast")
+            return
+        if fh_parts is not None:
+            fh_ul, fh_dl, t_bc = fh_parts
+        else:
+            aux = self._latency_aux()
+            fh_ul, fh_dl = float(aux["theta_u"]), float(aux["theta_d"])
+            t_bc = max(sync_s - fh_ul - fh_dl, 0.0)
+        tr.link_span("sbs_ul", t0=t0, dur=fh_ul, bits=ul_bits,
+                     name="sync_ul")
+        tr.link_span("mbs_dl", t0=t0 + fh_ul, dur=fh_dl, bits=dl_bits,
+                     name="sync_dl")
+        if bcast_bits is not None:
+            tr.link_span("sbs_dl", t0=t0 + fh_ul + fh_dl, dur=t_bc,
+                         bits=bcast_bits, name="sync_bcast")
+
     # --- lockstep / deadline ---------------------------------------------
 
     def _run_lockstep(
@@ -1048,6 +1239,10 @@ class SimEngine:
         t = 0.0
         ctx: dict = {}
         N = self.hfl.num_clusters
+        # health stats ride the sync step only when BOTH the monitor is on
+        # and the caller built the sync with collect_stats
+        stats_on = (self.obs.health.enabled
+                    and bool(getattr(sync_step, "collect_stats", False)))
         # depth > 2: the tiered sync threads its own side buffers and fires
         # a variable-height boundary (hier_fire_top) each period
         hier = bool(getattr(sync_step, "hier", False))
@@ -1057,43 +1252,61 @@ class SimEngine:
                 # the virtual clock feeds the diurnal availability curve
                 self._vt = t
                 ctx = self._round_ctx(deadline)
+                if self._rounds_seen is not None:
+                    src = ctx.get("src")
+                    if src is not None:
+                        part = src[:, 0] >= 0
+                    elif ctx["keep_clusters"] is not None:
+                        part = np.asarray(ctx["keep_clusters"], bool)
+                    else:
+                        part = np.ones(N, bool)
+                    self._rounds_seen += 1
+                    self._rounds_part += part
+                    self.obs.health.ingest_round(part, t=t)
             if self.residency is not None:
                 batch, keep = self._gather_batch(next(it), ctx["src"])
             else:
                 batch = self._apply_participation(next(it), ctx["mask"])
                 keep = ctx["keep_clusters"]
-            if keep is not None:  # sat-out clusters: loss only, no update
-                state, loss = train_step(state, batch, keep=keep)
-            else:
-                state, loss = train_step(state, batch)
+            with self.obs.host_span("train_step"):
+                if keep is not None:  # sat-out clusters: loss only, no update
+                    state, loss = train_step(state, batch, keep=keep)
+                else:
+                    state, loss = train_step(state, batch)
+            t_iter0 = t
             t += ctx["iter_s"]
-            self._count_train(ctx["participants"],
-                              ctx.get("active_clusters", N))
-            if self._record:
-                trace.add(kind="train", t=t, step=step,
-                          loss=float(loss.float().mean()),
+            ul_b, dl_b = self._count_train(ctx["participants"],
+                                           ctx.get("active_clusters", N))
+            if self.obs.enabled:
+                self._trace_train_step(step, t_iter0, ctx, ul_b, dl_b)
+            if self._record or self.obs.health.enabled:
+                loss_mean = float(loss.float().mean())
+                self.obs.health.ingest_loss(loss_mean, t=t)
+                trace.add(kind="train", t=t, step=step, loss=loss_mean,
                           dropped=ctx["dropped"])
             if (step + 1) % H == 0:
                 sync_s = ctx["sync_s"]
                 row_extra = {}
+                sync_ul = sync_dl = 0.0
+                bcast_b = fh_parts = legs = None
                 if hier:
                     top = sync_step.fire_top((step + 1) // H)
                     row_extra = {"tier": int(top)}
                     if self.ledger is not None:
                         # the cascade's REAL per-boundary payloads, measured
                         # before the in-place sync, re-price the boundary
-                        sync_s, row_bits = self._measure_sync_hier(
-                            state, hbufs, top)
+                        (sync_ul, sync_dl, sync_s, bcast_b, legs,
+                         row_bits) = self._measure_sync_hier(state, hbufs, top)
                         row_extra.update(row_bits)
                     else:
-                        self._count_sync_hier(top)
+                        sync_ul, sync_dl = self._count_sync_hier(top)
                         sync_s += self._hier_sync_extra_s(top)
                 elif self.ledger is not None:
                     # measure the REAL fronthaul payloads this sync sends
                     # (before the in-place sync consumes the state) and
                     # re-price θ^U/θ^D from the actual bit counts
                     ul_b, dl_b = self._probe_host(state)
-                    self._count_sync_measured(ul_b, dl_b)
+                    sync_ul, sync_dl = self._count_sync_measured(ul_b, dl_b)
                     aux = self._latency_aux()
                     # the post-consensus SBS->MU broadcast carries the
                     # ACTUAL consensus payload (dl_b bits): re-price each
@@ -1104,8 +1317,9 @@ class SimEngine:
                     t_bcast = np.where(finite, dl_b / aux["dl_rates"], 0.0)
                     n_bcast = int(finite.sum())
                     if n_bcast:
-                        self._bits_access += self.ledger.record(
+                        bcast_b = self.ledger.record(
                             "sbs_dl", n_bcast * dl_b, events=n_bcast)
+                        self._bits_access += bcast_b
                     sync_s = float(
                         (ul_b.max() + dl_b) / aux["fh_rate"]
                         + (t_bcast[finite].max() if n_bcast else 0.0)
@@ -1113,19 +1327,40 @@ class SimEngine:
                     row_extra = {"bits_sbs_ul": float(ul_b.sum()),
                                  "bits_mbs_dl": dl_b,
                                  "bits_sync_bcast": n_bcast * dl_b}
+                    if self.obs.enabled:
+                        # viz-only leg durations; sync_s itself stays the
+                        # single fused expression above (bit-identity)
+                        fh_parts = (
+                            float(ul_b.max()) / aux["fh_rate"],
+                            dl_b / aux["fh_rate"],
+                            float(t_bcast[finite].max()) if n_bcast else 0.0,
+                        )
                 else:
-                    self._count_sync(N)
-                if hier:
-                    state, hbufs = sync_step(state, hbufs, top)
-                else:
-                    state = sync_step(state)
+                    sync_ul, sync_dl = self._count_sync(N)
+                with self.obs.host_span("sync_step"):
+                    if hier:
+                        state, hbufs = sync_step(state, hbufs, top)
+                    elif stats_on:
+                        state, sstats = sync_step(state)
+                    else:
+                        state = sync_step(state)
+                t_sync0 = t
                 t += sync_s
+                if self.obs.enabled:
+                    self._trace_sync(step, t_sync0, sync_s, sync_ul, sync_dl,
+                                     bcast_b, fh_parts, row_extra, legs=legs)
+                if stats_on:
+                    self.obs.health.ingest_sync_stats(sstats, t=t)
+                    self.obs.health.ingest_payload(sync_ul + sync_dl, t=t)
+                    del sstats  # the index sets: not alive through the next sync
                 trace.add(kind="sync", t=t, step=step, dropped=ctx["dropped"],
                           deadline_s=ctx["deadline_s"], iter_s=ctx["iter_s"],
                           sync_s=sync_s, **row_extra)
-                self._advance_fleet(H * ctx["iter_s"] + sync_s)
+                self._advance_fleet(H * ctx["iter_s"] + sync_s, now=t)
             if on_step is not None:
                 on_step(step, state, loss)
+            self.obs.tick()
+        self._finish_run()
         trace.meta.update(self._totals())
         return state, trace
 
@@ -1178,9 +1413,11 @@ class SimEngine:
         q = EventQueue()
         dl_sparse = bool(hfl.async_dl_sparse)
         measured = self.ledger is not None
+        stats_on = self.obs.health.enabled
         sent = {}
         sync_n = make_async_sync_step(
             hfl, dl_sparse=dl_sparse, codec=self._codec if measured else None,
+            collect_stats=stats_on,
             on_payloads=(None if on_async_sync is None else
                          lambda n, up, down: sent.update(uplink=up,
                                                          downlink=down)))
@@ -1195,11 +1432,14 @@ class SimEngine:
         fleet_time = 0.0
         mpc = hfl.mus_per_cluster
         fault = getattr(self.sim, "fault_dead_cluster", None)
+        # per-cluster round start times (virtual): round r of cluster n
+        # occupies [round_t0[n], its pop time]; tracked for the trace spans
+        round_t0 = np.zeros(N)
         while len(q):
             t, ev = q.pop()
             n = ev.cluster
             if self.fleet.mobile:
-                self._advance_fleet(t - fleet_time)
+                self._advance_fleet(t - fleet_time, now=t)
                 fleet_time = t
             # availability: unavailable MUs in this cluster's data slots
             # (static layout, or the resident shards under a tracker) sit
@@ -1239,6 +1479,14 @@ class SimEngine:
             if idle:
                 trace.add(kind="idle", t=t, cluster=int(n),
                           round=int(ev.round), dropped=dropped)
+                if self.obs.enabled:
+                    self.obs.tracer.span(
+                        "idle", track=f"cluster{n}", t0=round_t0[n],
+                        dur=t - round_t0[n],
+                        args={"round": int(ev.round), "dropped": dropped})
+                self._mark_round(n, False, t)
+                round_t0[n] = t
+                self.obs.tick()
                 if ev.round + 1 < rounds:
                     q.push(t + self._cluster_round_time(n, comp),
                            Event("cluster_done", cluster=n,
@@ -1251,14 +1499,31 @@ class SimEngine:
             participants = (min(n_res - dropped, mpc)
                             if self.residency is not None
                             else max(members - dropped, 0))
+            # staleness is fixed before this round's own consensus lands:
+            # the round's weight is known up front, so the round span is
+            # emitted first and per-track span starts stay monotone
             staleness = global_updates - last_pull[n]
             w = async_weight(staleness, N, self.sim.staleness_exp)
+            iter_w = sync_tail = 0.0
+            if self.obs.enabled:
+                # round window [round_t0, t]: H iteration windows plus the
+                # θ^U+θ^D sync tail (clamped — pricing may have moved since
+                # the round was scheduled); viz decomposition only
+                W = t - round_t0[n]
+                if self.wireless:
+                    aux = self._latency_aux()
+                    sync_tail = min(float(aux["theta_u"] + aux["theta_d"]), W)
+                iter_w = max(W - sync_tail, 0.0) / H
+                self.obs.tracer.span(
+                    "round", track=f"cluster{n}", t0=round_t0[n], dur=W,
+                    args={"round": int(ev.round), "staleness": int(staleness),
+                          "weight": float(w), "dropped": dropped})
             # state.step feeds the LR schedule: THIS cluster's per-round
             # progress, not the global launch count
             state = state._replace(step=ev.round * H)
             onehot = np.arange(N) == n
             loss = None
-            for _ in range(H):
+            for h in range(H):
                 batch = next(it)
                 if masked_train_step is not None:
                     # only the active cluster, and only ITS rows gathered
@@ -1268,7 +1533,8 @@ class SimEngine:
                         batch_n = tree_map(
                             lambda l: l[n] if l.ndim >= 2 else l,
                             self._apply_participation(batch, mask))
-                    state, loss = masked_train_step(state, batch_n, n)
+                    with self.obs.host_span("train_step"):
+                        state, loss = masked_train_step(state, batch_n, n)
                 else:
                     if self.residency is not None:
                         batch, _keep = self._gather_batch(batch, src)
@@ -1276,19 +1542,36 @@ class SimEngine:
                         batch = self._apply_participation(batch, mask)
                     # the other clusters' rows stay as they were (the
                     # reference's _take_cluster_row)
-                    state, loss = train_step(state, batch, keep=onehot)
+                    with self.obs.host_span("train_step"):
+                        state, loss = train_step(state, batch, keep=onehot)
                 steps_done += 1
-                self._count_train(participants, 1)
+                ul_b, dl_b = self._count_train(participants, 1)
+                if self.obs.enabled and self.wireless:
+                    # async link spans live on the cluster track: rounds
+                    # overlap across clusters, so shared link tracks would
+                    # break per-track time ordering
+                    it0 = round_t0[n] + h * iter_w
+                    tr_ = self.obs.tracer
+                    tr_.link_span("mu_ul", t0=it0, dur=iter_w, bits=ul_b,
+                                  name="train_ul", track=f"cluster{n}")
+                    tr_.link_span("sbs_dl", t0=it0, dur=iter_w, bits=dl_b,
+                                  name="train_dl", track=f"cluster{n}")
             if on_async_sync is not None:
                 _wait(e_dl if e_dl is not None else state)
                 t_sync = time.perf_counter()
-            if dl_sparse:
-                out = sync_n(state, e_dl, n, w)
-                state, e_dl, rest = out[0], out[1], out[2:]
-            elif measured:
-                state, *rest = sync_n(state, n, w)
-            else:
-                state, rest = sync_n(state, n, w), ()
+            sstats = None
+            with self.obs.host_span("sync_step"):
+                # variants append (bits?, stats?) after the carried state
+                if dl_sparse:
+                    out = sync_n(state, e_dl, n, w)
+                    state, e_dl, rest = out[0], out[1], out[2:]
+                elif measured or stats_on:
+                    out = sync_n(state, n, w)
+                    state, rest = out[0], out[1:]
+                else:
+                    state, rest = sync_n(state, n, w), ()
+                if stats_on:
+                    sstats = rest[-1]
             if on_async_sync is not None:
                 _wait(e_dl if e_dl is not None else state)
                 sync_wall = time.perf_counter() - t_sync
@@ -1307,8 +1590,30 @@ class SimEngine:
                     [float(host["sbs_ul"])], dl_b)
             else:
                 s_ul, s_dl = self._count_sync(1)
+            if self.obs.enabled:
+                self.obs.registry.histogram("sim.staleness").observe(
+                    float(staleness), cluster=f"c{n}")
+            if sstats is not None:
+                self.obs.health.ingest_async_sync_stats(
+                    sstats, n, staleness, t=t)
+                self.obs.health.ingest_payload(s_ul + s_dl, t=t)
+                sstats = None  # the index sets: not alive through the next event
+            self._mark_round(n, True, t)
+            if self.obs.enabled:
+                tr_ = self.obs.tracer
+                t_s0 = t - sync_tail
+                tr_.span("sync", track=f"cluster{n}", t0=t_s0, dur=sync_tail,
+                         args={"round": int(ev.round),
+                               "staleness": int(staleness),
+                               "weight": float(w)})
+                if self.wireless:
+                    tr_.link_span("sbs_ul", t0=t_s0, dur=sync_tail, bits=s_ul,
+                                  name="sync_ul", track=f"cluster{n}")
+                    tr_.link_span("mbs_dl", t0=t_s0, dur=sync_tail, bits=s_dl,
+                                  name="sync_dl", track=f"cluster{n}")
             # the ACTIVE cluster's loss: the fallback computes all N rows
             loss_n = float(loss if loss.dim() == 0 else loss[n])
+            self.obs.health.ingest_loss(loss_n, t=t)
             trace.add(kind="sync", t=t, step=steps_done - 1, cluster=int(n),
                       round=int(ev.round), staleness=int(staleness),
                       weight=float(w), dropped=dropped, loss=loss_n)
@@ -1324,6 +1629,9 @@ class SimEngine:
             if ev.round + 1 < rounds:
                 q.push(t + self._cluster_round_time(n, comp),
                        Event("cluster_done", cluster=n, round=ev.round + 1))
+            round_t0[n] = t
+            self.obs.tick()
+        self._finish_run()
         trace.meta.update(self._totals())
         return state, trace
 
@@ -1405,11 +1713,12 @@ class SimEngine:
         n_syncs = 0
         fleet_time = 0.0
         fault = getattr(self.sim, "fault_dead_cluster", None)
+        round_t0 = np.zeros(U)
         while len(q):
             t, ev = q.pop()
             u = ev.cluster
             if fleet is not None and fleet.mobile:
-                self._advance_fleet(t - fleet_time)
+                self._advance_fleet(t - fleet_time, now=t)
                 fleet_time = t
             self._vt = t
             avail = (fleet.draw_available(t)
@@ -1446,14 +1755,16 @@ class SimEngine:
             loss = None
             for _ in range(H):
                 batch = self._apply_participation(next(it), mask)
-                state, loss = train_step(state, batch, keep=keep)
+                with self.obs.host_span("train_step"):
+                    state, loss = train_step(state, batch, keep=keep)
                 steps_done += 1
                 self._count_train(participants, int(keep.sum()))
             # within-unit consensus: boundaries 1..utop at their lockstep
             # cadences, capped below the cut
             utop = min(hier_fire_top(tiers, ev.round + 1), cut - 1)
             if utop >= 1:
-                state, bufs, secs = timed(unit_sync, state, u, utop)
+                with self.obs.host_span("sync_step"):
+                    state, bufs, secs = timed(unit_sync, state, u, utop)
                 s_ul, s_dl = self._count_sync_unit(utop, cut)
                 n_syncs += 1
                 if on_async_sync is not None:
@@ -1461,13 +1772,24 @@ class SimEngine:
                                        unit=int(u), tier=int(utop), agg=int(u),
                                        round=int(ev.round), seconds=secs,
                                        bits_ul=s_ul, bits_dl=s_dl), state)
-            if utop >= 1 and self._record:  # the unit's loss: a host sync
+            if (utop >= 1 and self._record) or self.obs.health.enabled:
+                # the unit's loss: a host sync
                 loss_u = float(loss.float().mean() if loss.dim() == 0
                                else loss[u * G:(u + 1) * G].float().mean())
+            if self.obs.enabled:
+                self.obs.tracer.span(
+                    "round", track=f"edge{u}", t0=round_t0[u],
+                    dur=t - round_t0[u],
+                    args={"round": int(ev.round), "dropped": dropped})
+            for c in range(u * G, (u + 1) * G):
+                self._mark_round(c, bool(keep[c]), t)
+            if utop >= 1 and self._record:
                 trace.add(kind="sync", t=t, step=steps_done - 1,
                           tier=int(utop), edge=int(u), round=int(ev.round),
                           dropped=dropped, loss=loss_u,
                           bits_ul=s_ul, bits_dl=s_dl)
+            if self.obs.health.enabled:
+                self.obs.health.ingest_loss(loss_u, t=t)
             if (ev.round + 1) % Hc == 0:
                 # the push across the cut, cascading up through the counted
                 # boundaries above it: staleness counts the updates siblings
@@ -1478,13 +1800,26 @@ class SimEngine:
                     staleness = updates[tb][p] - last_pull[tb][a]
                     w = async_weight(staleness, tiers[tb].fanout,
                                      self.sim.staleness_exp)
-                    state, bufs, secs = timed(push, state, tb, a, w)
+                    with self.obs.host_span("sync_step"):
+                        state, bufs, secs = timed(push, state, tb, a, w)
                     updates[tb][p] += 1
                     last_pull[tb][a] = updates[tb][p]
                     r_ul, r_dl = self._count_sync_push(tb)
                     n_syncs += 1
+                    t_push = 0.0
                     if self.wireless:
-                        t += (r_ul + r_dl) / self._latency_aux()["fh_rate"]
+                        t_push = (r_ul + r_dl) / self._latency_aux()["fh_rate"]
+                    t += t_push
+                    if self.obs.enabled:
+                        label = f"e{a}" if tb == cut else f"t{tb}a{a}"
+                        self.obs.registry.histogram("sim.staleness").observe(
+                            float(staleness), cluster=label)
+                        self.obs.tracer.span(
+                            "sync", track=f"edge{u}", t0=t - t_push,
+                            dur=t_push,
+                            args={"round": int(ev.round), "tier": int(tb),
+                                  "staleness": int(staleness),
+                                  "weight": float(w)})
                     trace.add(kind="sync", t=t, step=steps_done - 1,
                               tier=int(tb), edge=int(a), round=int(ev.round),
                               staleness=int(staleness), weight=float(w),
@@ -1509,5 +1844,8 @@ class SimEngine:
             if ev.round + 1 < rounds:
                 q.push(t + unit_rt(u),
                        Event("unit_done", cluster=u, round=ev.round + 1))
+            round_t0[u] = t
+            self.obs.tick()
+        self._finish_run()
         trace.meta.update(self._totals())
         return state, trace

@@ -300,14 +300,6 @@ def apply_hfl_overrides(scn: Scenario, hfl_cfg: HFLConfig) -> HFLConfig:
         dataclasses.replace(tc, **kw) for tc, kw in zip(cfg.tiers, per_tier)))
 
 
-def unported(sim: SimConfig, hfl_cfg: HFLConfig) -> Optional[str]:
-    """What of the port is still missing for a run -> the message, or
-    None when the port runs it: None for every scenario of the registry
-    (telemetry, ROADMAP Queue 1 item 14, raises where ``SimConfig.obs``
-    is read)."""
-    return None
-
-
 def build_trace(sim: SimConfig, n_mus: int, topo: HCNTopology):
     """Mobility trace for a scenario: load ``trace_file`` if set, else run
     the named synthetic generator; None when the scenario has neither.
@@ -340,12 +332,13 @@ def build_engine(
     seed: Optional[int] = None,
     trace_file: Optional[str] = None,
     residency: Optional[str] = None,
+    obs=None,
 ) -> SimEngine:
     """Topology + fleet (+ mobility trace + residency tracker) + engine
-    for a training scenario. ``seed``/``trace_file``/``residency``
+    for a training scenario. ``seed``/``trace_file``/``residency``/``obs``
     override the scenario's ``SimConfig`` (the train CLI's
-    ``--sim-seed``/``--trace-in``/``--residency``). What the port does not
-    run yet would raise here (``unported``: nothing of the registry)."""
+    ``--sim-seed``/``--trace-in``/``--residency`` and its telemetry
+    flags' ``ObsConfig``)."""
     assert scn.kind == "train", f"{scn.name} is a sampling scenario"
     sim = scn.sim
     over = {}
@@ -356,11 +349,10 @@ def build_engine(
         over["trace_model"] = None
     if residency is not None:
         over["residency"] = residency
+    if obs is not None:
+        over["obs"] = obs
     if over:
         sim = dataclasses.replace(sim, **over)
-    why = unported(sim, hfl_cfg)
-    if why is not None:
-        raise NotImplementedError(f"scenario {scn.name!r}: {why}")
     if (sim.trace_file or sim.trace_model) and sim.speed_mps > 0:
         # replay REPLACES the waypoint integrator: --trace-in on a scenario
         # with built-in mobility silences its speed_mps

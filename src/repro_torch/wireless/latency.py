@@ -19,15 +19,27 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch.obs.metrics import current_registry
 from repro_torch.wireless.broadcast import broadcast_latency
 from repro_torch.wireless.subcarrier import allocate_subcarriers
 from repro_torch.wireless.topology import HCNTopology
 
 
 def _emit_pricing(fn: str, fh_rate, theta_u, theta_d, gamma_dl) -> None:
-    """Where the reference mirrors a (re)pricing into its ambient metrics
-    registry; a no-op until the registry is ported (ROADMAP Queue 1 item
-    14)."""
+    """Mirror one radio (re)pricing into the ambient metrics registry.
+
+    The pricing functions have no handle to thread, so they emit into
+    ``current_registry()`` — the shared ``NULL_REGISTRY`` unless a
+    telemetry run installed a live one (one branch when disabled).
+    """
+    reg = current_registry()
+    if not reg.enabled:
+        return
+    reg.counter("wireless.pricings").inc(fn=fn)
+    reg.gauge("wireless.fh_rate_bps").set(fh_rate)
+    reg.gauge("wireless.theta_u_s").set(theta_u)
+    reg.gauge("wireless.theta_d_s").set(theta_d)
+    reg.histogram("wireless.gamma_dl_s").observe(gamma_dl)
 
 
 @dataclass

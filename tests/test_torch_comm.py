@@ -261,8 +261,23 @@ def test_ledger_matches_reference():
     assert tacc.FRONTHAUL_LINKS == jacc.FRONTHAUL_LINKS
     for t in range(5):
         assert tacc.boundary_links(t) == jacc.boundary_links(t)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tacc.PayloadLedger(codec="bitmap", size=1, registry=object())
+    # the live metrics mirror: comm.bits / comm.payloads by link, the
+    # reference's registry snapshot key for key
+    from repro.obs import MetricsRegistry as JReg
+    from repro_torch.obs import MetricsRegistry as TReg
+
+    treg, jreg = TReg(), JReg()
+    links = tacc.link_names(3)
+    tl = tacc.PayloadLedger(codec="bitmap", size=100, links=links, registry=treg)
+    jl = jacc.PayloadLedger(codec="bitmap", size=100, links=links, registry=jreg)
+    for led in (tl, jl):
+        assert led.record("mu_ul", 800, events=4) == 800.0
+        led.record("t2_ul", 0.5)
+        led.record("mu_ul", 16)
+    assert treg.snapshot() == jreg.snapshot()
+    assert treg.snapshot()["comm.bits"]["series"] == {"link=mu_ul": 816.0,
+                                                      "link=t2_ul": 0.5}
+    assert tl.summary() == jl.summary()
 
 
 @pytest.mark.parametrize("name", CODEC_NAMES)

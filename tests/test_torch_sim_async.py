@@ -282,10 +282,57 @@ def test_async_weight_and_dl_error_match_reference():
     assert not e.any()
 
 
-def test_async_collect_stats_raises_naming_its_item():
-    th = THFLConfig(tiers=t_parse("2x2:H=2"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        TE.make_async_sync_step(th, collect_stats=True)
+STATS_CASES = [(dl, impl, codec) for dl in (False, True)
+               for impl in ("topk", "pallas") for codec in (None, "delta-varint")]
+
+
+@pytest.mark.parametrize("dl_sparse,impl,codec", STATS_CASES,
+                         ids=[f"{'dl' if d else 'dense'}-{i}-{c or 'nocodec'}"
+                              for d, i, c in STATS_CASES])
+def test_async_collect_stats_match_reference(dl_sparse, impl, codec):
+    """The health monitor's per-cluster statistics of the async sync: the
+    Ω index sets exactly, the norms (drift over the post-sync rows, eps,
+    w_ref, weight·sent, e_dl) rtol 1e-4 (the port sums them in f64, the
+    reference in f32), and the state, e_dl and bit counts bitwise those of
+    the same sync without statistics."""
+    jh, th, jst, tst, jedl, tedl = _sync_states(impl, None, seed=5)
+    _, _, _, tst_off, _, tedl_off = _sync_states(impl, None, seed=5)
+    n, w = 2, JE.async_weight(1, 3)
+    jf = JE.make_async_sync_step(jh, dl_sparse=dl_sparse, codec=codec,
+                                 collect_stats=True)
+    tf = TE.make_async_sync_step(th, dl_sparse=dl_sparse, codec=codec,
+                                 collect_stats=True)
+    off = TE.make_async_sync_step(th, dl_sparse=dl_sparse, codec=codec)
+    assert tf.collect_stats and not off.collect_stats
+    if dl_sparse:
+        jout = jf(jst, jedl, jnp.int32(n), jnp.float32(w))
+        tout = tf(tst, tedl, n, w)
+        oout = off(tst_off, tedl_off, n, w)
+        assert np.array_equal(_bits(tout[1]), _bits(oout[1]))
+    else:
+        jout = jf(jst, jnp.int32(n), jnp.float32(w))
+        tout = tf(tst, n, w)
+        oout = off(tst_off, n, w)
+        if codec is None:
+            oout = (oout,)
+    assert len(tout) == len(jout) == len(oout) + 1
+    js, ts = jout[-1], tout[-1]
+    keys = {"drift", "eps_norm", "wref_norm", "update_norm", "ul_idx"}
+    if dl_sparse:
+        keys |= {"e_dl_norm", "dl_idx"}
+    assert set(ts) == set(js) == keys
+    for k in keys:
+        if k.endswith("idx"):
+            assert np.array_equal(ts[k].long().numpy(), np.asarray(js[k]))
+        else:
+            assert ts[k].dim() == 0
+            np.testing.assert_allclose(float(ts[k]), float(js[k]), rtol=RTOL)
+    assert float(ts["drift"]) > 0 and float(ts["update_norm"]) > 0
+    for a, b in zip(tree_leaves(tout[0]._asdict()), tree_leaves(oout[0]._asdict())):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    if codec is not None:
+        assert {k: int(v) for k, v in tout[-2].items()} == \
+            {k: int(v) for k, v in oout[-1].items()}
 
 
 # ---------------------------------------------------------------------------
