@@ -146,7 +146,30 @@ nonzero):
      first train step's and sync's flops, bytes and profiler launch
      counts, the train flops beside 6 · params · tokens, the losses equal
      to the same run without the flag;
-  9. one JSON line listing every ported kernel with its launches on each
+  9. the model families (``model_families``): (a) the serving twin
+     (``launch.serve_batched.run``, the example's batch 8, prompt 48 and 16
+     new tokens, ``--full``, bf16) for all ten architectures, at full depth
+     but for granite-34b and llava-next-34b (16 layers) and dbrx-132b and
+     deepseek-v2-236b (2 layers, ``SERVE_LAYERS``): finite logits, tokens
+     [8, 16], prefill ms, decode ms per step and the peak; (b) decode ==
+     forward at full width in f32 (``CACHE_RUNS``: danube, deepseek-v2 and
+     dbrx at 2 layers with a ``capacity_factor`` that drops no token, 8 or
+     E / K where larger, mamba2 at 2 layers with a
+     300-token prompt across its SSD chunk, zamba2 at 7 layers, llava at 2
+     layers): prefill with ``max_len`` = prompt + frontend + 3, three
+     decode steps against the full-sequence logits at rtol/atol 2e-3; and
+     every reduced configuration's forward card = CPU in f32 at 1e-4; (c)
+     HFL training through ``train.run`` at ``2x2:H=2 --sync sparse
+     --batch-per-mu 4 --seq 128``, 4 steps (``FAMILY_TRAIN``): mamba2-780m
+     at full depth (``pallas``), zamba2-7b at 7 layers (``fused``),
+     musicgen-medium at 16 layers with its 256 audio frames (``pallas``)
+     and deepseek-v2 reduced in f32 (``pallas``), whose losses must equal
+     the same run on the CPU at rtol 1e-4; full-width MoE training waits
+     for ROADMAP Queue 1 item 16 (one deepseek-v2 layer is ~3.97B params,
+     ~200 GB of HFL state at N = 2). Each run: 6 launches of each kernel of
+     its impl, the rows identical after each sync, finite losses, the
+     steady s/step, sync ms and a peak under ``PEAK_LIMIT_GB``;
+ 10. one JSON line listing every ported kernel with its launches on each
      path (and their sum), error, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
@@ -196,6 +219,27 @@ PEAK_LIMIT_GB = 76.0
 # the telemetry runs' --metrics-out / --trace-viz files (build/ is ignored)
 OBS_DIR = ROOT / "build" / "chip_smoke_obs"
 OBS_LAYERS = 6  # phase 8b's depth cut: async at 6 layers (see the docstring)
+# phase 9a: the serving twin at full width with the example's defaults; the
+# depth cut of each configuration whose weights alone would take most of
+# the card (or more): granite and llava ~0.38-0.56B params a layer, dbrx
+# ~3.26B and deepseek-v2 ~3.97B
+SERVE_LAYERS = {"granite-34b": 16, "llava-next-34b": 16, "dbrx-132b": 2,
+                "deepseek-v2-236b": 2}
+# 9b: decode == forward at full width in f32: arch -> (layers, prompt);
+# mamba2's prompt crosses its 256-token SSD chunk, zamba2's 7 layers hold
+# shared-attention sites at layers 0 and 6
+CACHE_RUNS = {"h2o-danube-3-4b": (2, 12), "deepseek-v2-236b": (2, 12),
+              "dbrx-132b": (2, 12), "mamba2-780m": (2, 300),
+              "zamba2-7b": (7, 12), "llava-next-34b": (2, 12)}
+CACHE_STEPS, CACHE_TOL = 3, 2e-3  # the reference's test_decode_matches_forward
+# 9c: HFL training on the new families: (arch, argv, Ω impl). Full-width
+# MoE training waits for ROADMAP Queue 1 item 16 (one deepseek-v2 layer
+# is ~3.97B params, ~200 GB of HFL state at N = 2), so deepseek-v2 trains
+# reduced, in f32, held against the same run on the CPU
+FAMILY_TRAIN = (("mamba2-780m", ["--full"], "pallas"),
+                ("zamba2-7b", ["--full", "--layers", "7"], "fused"),
+                ("musicgen-medium", ["--full", "--layers", "16"], "pallas"),
+                ("deepseek-v2-236b", [], "pallas"))
 MAIN_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
              "--log-every", "1", "--device", "cuda"]
@@ -433,6 +477,182 @@ def profiled(torch, fn, path):
     emit({"profile": path.name, "wall_s": wall, "device_busy_s": busy_us / 1e6,
           "device_idle_share": 1.0 - busy_us / 1e6 / wall})
     return out
+
+
+def model_families(torch, counters, by_path, smi):
+    """Phase 9: every architecture family on the card (9a serving at full
+    width, 9b decode == forward at full width in f32 and the reduced
+    configs' forward card = CPU, 9c HFL training through ``train.run``);
+    adds each training run's kernel launches to ``by_path``."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import serve_batched, train
+    from repro_torch.models.frontends import fake_frontend_embeds
+    from repro_torch.models.transformer import (
+        decode_step, forward, init_model, prefill)
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    t9 = time.perf_counter()
+    limit = PEAK_LIMIT_GB * 1e9
+
+    # 9a. the serving twin, the example's defaults, --full
+    for arch in sorted(ARCHS):
+        free(torch)
+        out = serve_batched.run(arch, batch=8, prompt_len=48, new_tokens=16,
+                                device="cuda", full=True,
+                                layers=SERVE_LAYERS.get(arch))
+        finite = bool(torch.isfinite(out["logits"][..., :get_config(arch).vocab_size]
+                                     .float()).all())
+        emit({"phase": "families_serve", "arch": arch, "layers": out["layers"],
+              "of_layers": get_config(arch).num_layers, "batch": 8,
+              "prompt": 48, "new_tokens": 16,
+              "prefill_ms": 1e3 * out["prefill_s"],
+              "decode_ms_per_step": out["decode_ms_per_step"],
+              "tokens_shape": list(out["tokens"].shape), "finite_logits": finite,
+              "peak_gb": out["peak_gb"], "card": smi})
+        if not finite or tuple(out["tokens"].shape) != (8, 16):
+            raise AssertionError(f"serve {arch}: non-finite logits or bad tokens")
+        if out["peak_gb"] * 1e9 >= limit:
+            raise AssertionError(f"serve {arch}: peak {out['peak_gb']:.1f} GB")
+        del out
+
+    # 9b. decode == forward at full width, f32 model math
+    for arch, (layers, T) in CACHE_RUNS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        if cfg.num_experts:
+            # no token dropped by any routing: the reference test's 8.0, or
+            # E / K where that is larger (then C >= the group's tokens);
+            # deepseek-v2's 160 experts top-6 give C = 8 for a 24-token
+            # prefill at 8.0, and its tokens pick alike experts (up to 7 of
+            # 24 in one on the CPU's weights), so 8.0 could drop there
+            cfg = dataclasses.replace(cfg, capacity_factor=max(
+                8.0, cfg.num_experts / cfg.experts_per_token))
+        F = cfg.frontend_tokens if cfg.frontend != "none" else 0
+        V = cfg.vocab_size
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+        toks = torch.randint(0, V, (2, T + CACHE_STEPS),
+                             generator=torch.Generator().manual_seed(3)).to(dev)
+        fe = (fake_frontend_embeds(torch.Generator().manual_seed(4), cfg, 2).to(dev)
+              if F else None)
+        errs = []
+        with torch.no_grad():
+            full, _ = forward(params, toks, cfg, frontend_embeds=fe)
+            _, cache = prefill(params, toks[:, :T], cfg, frontend_embeds=fe,
+                               max_len=T + F + CACHE_STEPS)
+            for s in range(CACHE_STEPS):
+                dl, cache = decode_step(params, cache, toks[:, T + s:T + s + 1], cfg)
+                got, want = dl[:, 0, :V], full[:, F + T + s, :V]
+                errs.append(float((got - want).abs().max()))
+                if not torch.allclose(got, want, rtol=CACHE_TOL, atol=CACHE_TOL):
+                    raise AssertionError(f"cache {arch}: decode step {s} differs "
+                                         f"from forward by {errs[-1]}")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        emit({"phase": "families_cache", "arch": arch, "layers": layers,
+              "prompt": T, "frontend_tokens": F, "steps": CACHE_STEPS,
+              "dtype": "float32", "capacity_factor": cfg.capacity_factor,
+              "max_abs_err_by_step": errs, "tol": CACHE_TOL,
+              "peak_gb": peak / 1e9, "card": smi})
+        if peak >= limit:
+            raise AssertionError(f"cache {arch}: peak {peak / 1e9:.1f} GB")
+        del params, full, cache, dl
+
+    # the reduced configs' forward: card = CPU, f32
+    fwd_err = {}
+    for arch in sorted(ARCHS):
+        cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+        cpu_p = init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                             generator=torch.Generator().manual_seed(5))
+        fe = (fake_frontend_embeds(torch.Generator().manual_seed(6), cfg, 2)
+              if cfg.frontend != "none" else None)
+        with torch.no_grad():
+            want, want_aux = forward(cpu_p, toks, cfg, frontend_embeds=fe)
+            got, got_aux = forward(tree_map(lambda a: a.to(dev), cpu_p), toks.to(dev),
+                                   cfg, frontend_embeds=None if fe is None
+                                   else fe.to(dev))
+        V = cfg.vocab_size
+        got, want = got[..., :V].cpu(), want[..., :V]
+        fwd_err[arch] = float((got - want).abs().max())
+        if not (torch.allclose(got, want, rtol=1e-4, atol=1e-4) and torch.allclose(
+                got_aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)):
+            raise AssertionError(f"reduced {arch}: card and CPU forward differ "
+                                 f"by {fwd_err[arch]}")
+    emit({"phase": "families_card_equals_cpu", "dtype": "float32",
+          "max_abs_err": fwd_err, "tol": 1e-4})
+
+    # 9c. HFL training on the new families through train.run
+    want_launches = (N_CLUSTERS + 1) * (STEPS // PERIOD)
+    impl_kernels = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
+    real_get_config, real_init = train.get_config, train.init_model
+    for arch, extra, impl in FAMILY_TRAIN:
+        argv = (MAIN_ARGV[1:] + ["--arch", arch, "--omega-impl", impl] + extra)
+        identical, q = [], []
+
+        def on_sync(i, st, sec):
+            q[:] = [sum(P[0].numel() for P in tree_leaves(st.params))]
+            identical.append(all(torch.equal(P[0], P[n]) for P in tree_leaves(st.params)
+                                 for n in range(1, P.shape[0])))
+
+        f32 = arch == "deepseek-v2-236b"
+        if f32:  # held against the CPU at the f32 tolerance, from one init
+            # (a CUDA generator draws other numbers than the CPU's)
+            train.get_config = lambda n: dataclasses.replace(
+                real_get_config(n), dtype="float32")
+            train.init_model = lambda gen, cfg, device=None: tree_map(
+                lambda a: a.to(device), real_init(
+                    torch.Generator().manual_seed(0), cfg, device="cpu"))
+        try:
+            free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            out = train.run(train.parse_args(argv), on_sync=on_sync)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated()
+            cpu = None
+            if f32:
+                cpu = train.run(train.parse_args(
+                    [a if a != "cuda" else "cpu" for a in argv]))
+        finally:
+            train.get_config, train.init_model = real_get_config, real_init
+        by_path[f"{arch} {impl}"] = launches
+        line = {"phase": "families_train", "arch": arch, "argv": argv,
+                "impl": impl, "Q": q[0], "losses": out["hist"],
+                "eval_loss": out["eval_loss"],
+                "steady_s_per_step": out["timing"]["steady_s_per_step"],
+                "first_step_s": out["timing"]["compile_s"],
+                "sync_ms": [1e3 * t for t in out["sync_s"]],
+                "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+                "rows_identical_after_sync": identical, "card": smi}
+        if cpu is not None:
+            line.update(dtype="float32", cpu_losses=cpu["hist"],
+                        cpu_eval_loss=cpu["eval_loss"])
+        emit(line)
+        for name in impl_kernels[impl]:
+            if launches[name] != want_launches:
+                raise AssertionError(f"train {arch}: {name} launched "
+                                     f"{launches[name]} times, want {want_launches}")
+        if not (len(identical) == STEPS // PERIOD and all(identical)):
+            raise AssertionError(f"train {arch}: cluster rows differ after a sync")
+        if not (math.isfinite(out["eval_loss"])
+                and all(math.isfinite(l) for l in out["hist"])):
+            raise AssertionError(f"train {arch}: non-finite loss")
+        if peak >= limit:
+            raise AssertionError(f"train {arch}: peak {peak / 1e9:.1f} GB")
+        if cpu is not None:
+            got = out["hist"] + [out["eval_loss"]]
+            want = cpu["hist"] + [cpu["eval_loss"]]
+            if not all(math.isclose(g, w, rel_tol=1e-4) for g, w in zip(got, want)):
+                raise AssertionError(f"train {arch}: card losses {got} != CPU {want}")
+        del out, cpu
+    emit({"phase": "families_done", "seconds": time.perf_counter() - t9})
+    free(torch)
 
 
 def main(argv):
@@ -1829,7 +2049,10 @@ def main(argv):
     emit({"phase": "obs_path_done", "seconds": time.perf_counter() - t8})
     free(torch)
 
-    # ---- 9. kernel summary --------------------------------------------------
+    # ---- 9. the model families ---------------------------------------------
+    model_families(torch, counters, by_path, smi)
+
+    # ---- 10. kernel summary -------------------------------------------------
     meta = {
         "block_select": ("src/repro_torch/csrc/fused_sync.cu",
                          "src/repro/kernels/fused_sync/kernel.py:67"),

@@ -1,0 +1,20 @@
+"""dbrx-132b [moe]: 40L d_model=6144 48H (kv=8) fine-grained MoE 16 experts
+top-4 with per-expert d_ff=10752, vocab=100352. [hf:databricks/dbrx-base]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="dbrx-132b",
+    arch_type="moe",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=10752,
+    vocab_size=100352,
+    head_dim=128,
+    num_experts=16,
+    experts_per_token=4,
+    moe_d_ff=10752,
+    norm_type="layernorm",
+    act="silu",
+)

@@ -1,9 +1,11 @@
-"""LM loss: the port of ``repro.launch.steps.cross_entropy``/``make_loss_fn``."""
+"""Step builders: the LM loss and the serve (prefill/decode) steps, the
+port of ``repro.launch.steps`` (its dry-run input specs wait for ROADMAP
+Queue 1 item 16)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import decode_step, forward, prefill
 
 
 def cross_entropy(logits, targets):
@@ -14,16 +16,19 @@ def cross_entropy(logits, targets):
     return lse - tgt
 
 
-def make_loss_fn(cfg):
-    """LM loss over a batch dict. An optional ``row_weight`` leaf [B]
-    scales each row's contribution while the normalizer stays the ROW
-    COUNT (not the weight sum), as in the reference; weights of 1 equal
-    the plain mean."""
+def make_loss_fn(cfg, groups: int = 1):
+    """LM loss over a batch dict: ``tokens`` [B, T], the frontend
+    embeddings ``frontend`` [B, F, fd] where the architecture has a
+    frontend, and an optional ``row_weight`` leaf [B], which scales each
+    row's contribution while the normalizer stays the ROW COUNT (not the
+    weight sum), as in the reference; weights of 1 equal the plain mean.
+    The loss is taken over the text positions only."""
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
         rw = batch.get("row_weight")
-        logits, aux = forward(params, tokens, cfg)
+        logits, aux = forward(params, tokens, cfg,
+                              frontend_embeds=batch.get("frontend"), groups=groups)
         T = tokens.shape[1]
         ce = cross_entropy(logits[:, -T:-1], tokens[:, 1:])
         if rw is None:
@@ -35,3 +40,27 @@ def make_loss_fn(cfg):
         return loss, aux
 
     return loss_fn
+
+
+def build_prefill_step(cfg, groups: int = 1):
+    """``prefill_step(params, tokens, frontend=None) -> (logits, cache)``,
+    without autograd; the cache is sized to the prompt, as the
+    reference's step sizes it."""
+
+    @torch.no_grad()
+    def prefill_step(params, tokens, frontend=None):
+        return prefill(params, tokens, cfg, frontend_embeds=frontend,
+                       groups=groups)
+
+    return prefill_step
+
+
+def build_decode_step(cfg, groups: int = 1):
+    """``serve_step(params, cache, token) -> (logits, cache)``, without
+    autograd; the cache is updated in place."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, token):
+        return decode_step(params, cache, token, cfg, groups=groups)
+
+    return serve_step

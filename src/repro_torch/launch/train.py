@@ -1,11 +1,14 @@
 """End-to-end HFL training driver (the scenario-free path of
 ``repro.launch.train``), on the card unless ``--device cpu`` is given.
 
-Trains an (optionally reduced) architecture with the hierarchical-FL
-engine on synthetic LM data: N clusters x M MUs, intra-cluster aggregation
-every step, sparse cross-cluster consensus every H steps, and a final
-held-out eval of the consensus model. Same flags, LR scaling, data
-streams and ``first-loss/last-loss/eval-loss`` trailer as the reference:
+Trains an (optionally reduced) architecture, any of the ten ``--arch``
+(a frontend architecture's batches carry its stub embeddings, one seed
+drawn from the token stream's rng per batch as the reference draws its
+key), with the hierarchical-FL engine on synthetic LM data: N clusters x
+M MUs, intra-cluster aggregation every step, sparse cross-cluster
+consensus every H steps, and a final held-out eval of the consensus
+model. Same flags, LR scaling, data streams and
+``first-loss/last-loss/eval-loss`` trailer as the reference:
 
   PYTHONPATH=src python -m repro_torch.launch.train --full \
       --tiers 2x2:H=2 --sync sparse --omega-impl fused --steps 4
@@ -85,6 +88,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve
 from repro_torch.launch.op_cost import FirstCallCosts
 from repro_torch.launch.steps import make_loss_fn
+from repro_torch.models.frontends import fake_frontend_embeds
 from repro_torch.models.transformer import forward, init_model
 from repro_torch.obs import ObsConfig, RunLogger, StepClock, make_telemetry
 from repro_torch.optim import SGDM, warmup_step_decay
@@ -350,11 +354,23 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     rng = np.random.default_rng(2)
     local_b = hfl.mus_per_cluster * args.batch_per_mu
 
+    F = cfg.frontend_tokens if cfg.frontend != "none" else 0
+
+    def frontend(seed, batch):
+        # drawn on the CPU, so the card and the CPU see the same embeddings
+        gen = torch.Generator().manual_seed(seed)
+        return fake_frontend_embeds(gen, cfg, batch).to(dev)
+
     def make_batches():
         while True:
             toks = lm.sample(N * local_b, args.seq, rng)
-            yield {"tokens": torch.from_numpy(toks).to(dev, torch.int64)
-                   .reshape(N, local_b, args.seq)}
+            b = {"tokens": torch.from_numpy(toks).to(dev, torch.int64)
+                 .reshape(N, local_b, args.seq)}
+            if F:  # one draw of the token stream's rng per batch, as the
+                # reference seeds its frontend key
+                fe = frontend(int(rng.integers(1 << 30)), N * local_b)
+                b["frontend"] = fe.reshape(N, local_b, *fe.shape[1:])
+            yield b
 
     hist = []
     clock = StepClock()
@@ -406,7 +422,8 @@ def run(args, *, on_sync=None, wrap_train_step=None,
         sp = serving_params(state)
         toks = torch.from_numpy(lm.sample(32, args.seq, np.random.default_rng(99))
                                 ).to(dev, torch.int64)
-        logits, _ = forward(sp, toks, cfg)
+        logits, _ = forward(sp, toks, cfg,
+                            frontend_embeds=frontend(7, 32) if F else None)
         lp = torch.log_softmax(logits[:, -args.seq:].float(), dim=-1)
         eval_loss = float(-torch.gather(lp[:, :-1], -1, toks[:, 1:, None]).mean())
     if hist:

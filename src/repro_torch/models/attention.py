@@ -1,10 +1,13 @@
-"""GQA attention with RoPE (the dense-path part of ``repro.models.attention``).
+"""Attention layers: GQA (+RoPE, sliding window) and MLA (DeepSeek-V2), the
+port of ``repro.models.attention``.
 
 The reference computes causal attention with a chunked online softmax in
 plain jnp (no Pallas kernel), all softmax math in f32. The port computes
 the same function directly: f32 scores, causal (optionally sliding-window)
-mask, f32 softmax, output cast back to the input dtype. MLA and the decode
-cache wait for ROADMAP Queue 1 item 15.
+mask, f32 softmax, output cast back to the input dtype. Decode attends one
+query against a cache whose ``slot_pos`` records the absolute position
+each slot holds (-1 = empty). The decode functions write the new entry
+into the cache tensors in place and return them.
 """
 from __future__ import annotations
 
@@ -14,14 +17,15 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.models.common import (
-    apply_rope, default_scale, dense_init, rope_angles, torch_dtype,
+    apply_norm, apply_rope, default_scale, dense_init, init_norm, rope_angles,
+    torch_dtype,
 )
 
 NEG_INF = -1e30
 
 
 def causal_attention(q, k, v, *, window=0):
-    """q [B,T,H,D]; k,v [B,S,Hkv,D] (S == T) -> [B,T,H,D]."""
+    """q,k [B,T,H|Hkv,D]; v [B,T,Hkv,Dv] -> [B,T,H,Dv], scaled by 1/√D."""
     B, T, H, D = q.shape
     G = H // k.shape[2]
     qf = q.float().transpose(1, 2)  # [B,H,T,D]
@@ -63,3 +67,142 @@ def gqa_forward(p, x, cfg, *, window=None):
     w = cfg.sliding_window if window is None else window
     out = causal_attention(q, k, v, window=w)
     return out.reshape(B, T, H * D) @ p["wo"]
+
+
+def decode_attention(q, k, v, slot_pos, q_pos, *, window=0):
+    """One-token attention against a cache.
+
+    q [B,1,H,D]; k,v [B,S,Hkv,D]; slot_pos [B,S] absolute position held by
+    each cache slot (-1 = empty); q_pos [B] absolute position of the query.
+    """
+    B, _, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.float().reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * (1.0 / math.sqrt(D))
+    valid = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
+    if window:
+        valid &= slot_pos > (q_pos[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None], NEG_INF)
+    out = torch.einsum("bhgk,bkhd->bhgd", torch.softmax(s, dim=-1), v.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def gqa_fill_cache(p, x, cfg):
+    """Roped k and v of the whole prompt (the prefill's cache entries)."""
+    B, T, _ = x.shape
+    Hkv, D = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = (x @ p["wk"]).reshape(B, T, Hkv, D)
+    v = (x @ p["wv"]).reshape(B, T, Hkv, D)
+    cos, sin = rope_angles(torch.arange(T, device=x.device), D, cfg.rope_theta)
+    return apply_rope(k, cos, sin), v
+
+
+def gqa_decode(p, x, cache_k, cache_v, slot_pos, slot, pos, cfg, *, window=None):
+    """One-token GQA. x [B,1,d]; cache_k/v [B,S,Hkv,D]; pos [B] absolute
+    position; ``slot`` [B] the cache slot to write, which ``slot_pos``
+    already records. Returns (out, cache_k, cache_v)."""
+    B = x.shape[0]
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, 1, H, D)
+    k = (x @ p["wk"]).reshape(B, 1, Hkv, D)
+    v = (x @ p["wv"]).reshape(B, 1, Hkv, D)
+    cos, sin = rope_angles(pos[:, None], D, cfg.rope_theta)  # [B,1,D/2]
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, slot] = k[:, 0]
+    cache_v[bidx, slot] = v[:, 0]
+    w = cfg.sliding_window if window is None else window
+    out = decode_attention(q, cache_k, cache_v, slot_pos, pos, window=w)
+    return out.reshape(B, 1, H * D) @ p["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen, cfg, lead=(), device=None):
+    device = resolve(device)
+    d, H = cfg.d_model, cfg.num_heads
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = torch_dtype(cfg.dtype)
+    lead = tuple(lead)
+    return {
+        "w_dq": dense_init(gen, lead + (d, qr), dt, default_scale(d), device),
+        "w_uq": dense_init(gen, lead + (qr, H * (dn + dr)), dt,
+                           default_scale(qr), device),
+        "q_norm": init_norm(cfg, qr, lead, device),
+        "w_dkv": dense_init(gen, lead + (d, r + dr), dt, default_scale(d), device),
+        "kv_norm": init_norm(cfg, r, lead, device),
+        "w_uk": dense_init(gen, lead + (r, H, dn), dt, default_scale(r), device),
+        "w_uv": dense_init(gen, lead + (r, H, dv), dt, default_scale(r), device),
+        "wo": dense_init(gen, lead + (H * dv, d), dt, default_scale(H * dv), device),
+    }
+
+
+def _mla_q(p, x, cfg, positions):
+    B, T, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = apply_norm(p["q_norm"], x @ p["w_dq"], cfg)
+    q = (cq @ p["w_uq"]).reshape(B, T, cfg.num_heads, dn + dr)
+    cos, sin = rope_angles(positions, dr, cfg.rope_theta)
+    return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+
+
+def _mla_ckv(p, x, cfg, positions):
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    ckv_full = x @ p["w_dkv"]
+    ckv = apply_norm(p["kv_norm"], ckv_full[..., :r], cfg)
+    cos, sin = rope_angles(positions, dr, cfg.rope_theta)
+    # k_rope [B,T,dr] is shared across heads
+    k_rope = apply_rope(ckv_full[..., r:][:, :, None, :], cos, sin)[:, :, 0]
+    return ckv, k_rope
+
+
+def mla_forward(p, x, cfg):
+    """Train/prefill MLA: expand the latent to per-head k and v, then causal
+    attention over q = [nope, rope] at the scale 1/√(dn + dr). v keeps its
+    own width (the reference pads it to dn + dr for its flash kernel and
+    slices the pad off again)."""
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
+    positions = torch.arange(T, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, k_rope = _mla_ckv(p, x, cfg, positions)
+    k_nope = torch.einsum("btr,rhd->bthd", ckv, p["w_uk"])
+    v = torch.einsum("btr,rhd->bthd", ckv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+    out = causal_attention(q, k, v)
+    return out.reshape(B, T, H * dv) @ p["wo"]
+
+
+def mla_fill_cache(p, x, cfg):
+    """(ckv [B,T,r], k_rope [B,T,dr]) of the whole prompt."""
+    return _mla_ckv(p, x, cfg, torch.arange(x.shape[1], device=x.device))
+
+
+def mla_decode(p, x, cache_ckv, cache_kr, slot_pos, slot, pos, cfg):
+    """Absorbed one-token MLA: scores and output in the latent space."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None])
+    ckv, k_rope = _mla_ckv(p, x, cfg, pos[:, None])
+    bidx = torch.arange(B, device=x.device)
+    cache_ckv[bidx, slot] = ckv[:, 0]
+    cache_kr[bidx, slot] = k_rope[:, 0]
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], p["w_uk"])  # absorb W_uk
+    ckv_f = cache_ckv.float()
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.float(), ckv_f)
+         + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), cache_kr.float())
+         ) / math.sqrt(dn + dr)
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+    w = torch.softmax(s.masked_fill(~valid[:, None], NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", w, ckv_f).to(x.dtype)
+    out = torch.einsum("bhr,rhd->bhd", o_lat, p["w_uv"]).reshape(B, 1, H * dv)
+    return out @ p["wo"], cache_ckv, cache_kr

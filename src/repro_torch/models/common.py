@@ -27,7 +27,7 @@ def dense_init(gen, shape, dtype, scale, device):
     """normal * scale, drawn in f32 and cast, like ``dense_init``; ``shape``
     may carry leading stack axes ([L, d_in, d_out])."""
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)  # scaled in place: one f32 copy at a time
 
 
 def default_scale(d_in: int) -> float:
@@ -72,8 +72,13 @@ def apply_norm(p, x, cfg):
 # ---------------------------------------------------------------------------
 
 
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation, not the exact erf form
+    return F.gelu(x, approximate="tanh")
+
+
 def act_fn(name: str):
-    return {"silu": F.silu, "gelu": F.gelu, "relu": F.relu}[name]
+    return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
 
 
 def rope_angles(positions, dim, theta):

@@ -7,9 +7,10 @@ from repro_torch.device import resolve
 from repro_torch.models.common import act_fn, default_scale, dense_init, torch_dtype
 
 
-def init_mlp(gen, cfg, lead=(), device=None):
+def init_mlp(gen, cfg, lead=(), device=None, d_ff=None):
     device = resolve(device)
-    d, f = cfg.d_model, cfg.d_ff
+    d = cfg.d_model
+    f = d_ff if d_ff is not None else cfg.d_ff
     dt = torch_dtype(cfg.dtype)
     lead = tuple(lead)
     p = {

@@ -77,6 +77,22 @@ def test_cuda_entry_points_raise_without_a_card():
     assert params["embed"].device.type == "cpu"
 
 
+def test_serving_twin_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the card-less path")
+    from repro_torch.launch import serve_batched
+    from repro_torch.models.transformer import init_cache
+
+    cfg = serve_batched.get_config("mamba2-780m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_batched.run("mamba2-780m")  # device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_batched.main(["--arch", "zamba2-7b"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 2, 8)
+    assert init_cache(cfg, 2, 8, device="cpu")["state"].device.type == "cpu"
+
+
 def test_paper_path_raises_without_a_card_and_runs_on_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the card-less path")
