@@ -165,11 +165,33 @@ nonzero):
      musicgen-medium at 16 layers with its 256 audio frames (``pallas``)
      and deepseek-v2 reduced in f32 (``pallas``), whose losses must equal
      the same run on the CPU at rtol 1e-4; full-width MoE training waits
-     for ROADMAP Queue 1 item 16 (one deepseek-v2 layer is ~3.97B params,
-     ~200 GB of HFL state at N = 2). Each run: 6 launches of each kernel of
-     its impl, the rows identical after each sync, finite losses, the
-     steady s/step, sync ms and a peak under ``PEAK_LIMIT_GB``;
- 10. one JSON line listing every ported kernel with its launches on each
+     for ROADMAP Queue 1 item 16 part 3, a machine with four cards (one
+     deepseek-v2 layer is ~3.97B params, ~200 GB of HFL state at N = 2).
+     Each run: 6 launches of each kernel of its impl, the rows identical
+     after each sync, finite losses, the steady s/step, sync ms and a peak
+     under ``PEAK_LIMIT_GB``;
+ 10. the sharded flat vector and the mesh syncs (``sharded_paths``): (a)
+     the main path's run with ``--flat-shards 4`` (full olmo-1b width and
+     depth, ``fused`` Ω): S·(N + 1) = 12 ``block_select`` launches per sync
+     plus the second launches it prints, the rows identical after each
+     sync, each hop's exactness certificate printed; the last sync's input
+     copied to the host (the copy's seconds are taken off its sync ms) and
+     that sync run again with the plain compaction on the card, every
+     output row equal bit for bit (64-bit position-weighted fingerprints of
+     the bit patterns), and, where every certificate held, equal to the
+     unsharded fused sync's; (b) 4 rank processes on the card, gloo,
+     (data, model) = (2, 2), each building only its piece of a seeded
+     state at olmo-1b's full Q (``seeded_flat_shard``): each piece's
+     outputs equal the single-process emulation's on the same vectors,
+     ``block_select`` 3 times per rank (+ second launches); (c) 8 rank
+     processes, gloo, (pod, data, model) = (2, 2, 2), the pod flat layout
+     with ``pallas`` Ω and the leaf layout with ``topk`` on each rank's
+     blocks of olmo-1b at full width and ``POD_LAYERS`` layers: consensus,
+     conservation and adoption, 2 ``update_max`` and 2 ``tail_hist``
+     launches per rank on the flat layout, and both layouts at the tests'
+     narrow size card = CPU bit for bit. NCCL across cards waits for a
+     machine with four cards;
+ 11. one JSON line listing every ported kernel with its launches on each
      path (and their sum), error, times and bound.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
@@ -233,9 +255,9 @@ CACHE_RUNS = {"h2o-danube-3-4b": (2, 12), "deepseek-v2-236b": (2, 12),
               "zamba2-7b": (7, 12), "llava-next-34b": (2, 12)}
 CACHE_STEPS, CACHE_TOL = 3, 2e-3  # the reference's test_decode_matches_forward
 # 9c: HFL training on the new families: (arch, argv, Ω impl). Full-width
-# MoE training waits for ROADMAP Queue 1 item 16 (one deepseek-v2 layer
-# is ~3.97B params, ~200 GB of HFL state at N = 2), so deepseek-v2 trains
-# reduced, in f32, held against the same run on the CPU
+# MoE training waits for ROADMAP Queue 1 item 16 part 3 and four cards (one
+# deepseek-v2 layer is ~3.97B params, ~200 GB of HFL state at N = 2), so
+# deepseek-v2 trains reduced, in f32, held against the same run on the CPU
 FAMILY_TRAIN = (("mamba2-780m", ["--full"], "pallas"),
                 ("zamba2-7b", ["--full", "--layers", "7"], "fused"),
                 ("musicgen-medium", ["--full", "--layers", "16"], "pallas"),
@@ -652,6 +674,528 @@ def model_families(torch, counters, by_path, smi):
                 raise AssertionError(f"train {arch}: card losses {got} != CPU {want}")
         del out, cpu
     emit({"phase": "families_done", "seconds": time.perf_counter() - t9})
+    free(torch)
+
+
+# ---- phase 10: the sharded flat vector and the mesh syncs ----------------
+SHARDS = 4  # 10a/10b: the flat vector in 4 pieces, (data, model) = (2, 2)
+# 10c's depth cut: 8 rank processes, their contexts and blocks share the card
+POD_LAYERS = 4
+CHUNK = 1 << 22  # 10b's seeded chunks and the fingerprints' chunk
+RANK_TIMEOUT_S = 300
+_H = -7046029254386353131  # 0x9E3779B97F4A7C15 as int64: the position hash
+
+
+def fingerprint(torch, t, offset=0):
+    """Σ_i (bits(t[i]) + c)·h(offset + i) mod 2^64 over the flat tensor, in
+    int64 arithmetic that wraps: equal bit patterns at equal positions give
+    equal sums whatever the order of summation, so pieces add up to the
+    whole; a difference in any one entry always changes it."""
+    bits = {4: torch.int32, 2: torch.int16}[t.element_size()]
+    x = t.reshape(-1)
+    total = 0
+    for a in range(0, x.numel(), CHUNK):
+        k = x[a:a + CHUNK].view(bits).long()
+        pos = torch.arange(offset + a, offset + a + k.numel(), device=t.device)
+        total += int(((k + 0x5BD1E995) * ((pos * _H) | 1)).sum())
+    return total % (1 << 64)
+
+
+def seeded_vector(torch, seed, lo, hi, total, device, scale=1.0):
+    """Entries [lo, hi) of a vector of ``total`` entries (zeros past it)
+    made from fixed chunks of CHUNK normals, chunk c from seed (seed, c):
+    any process builds any piece of the same whole vector."""
+    out = torch.zeros((hi - lo,), dtype=torch.float32, device=device)
+    for c in range(lo // CHUNK, (min(hi, total) - 1) // CHUNK + 1):
+        g = torch.Generator(device=device).manual_seed(seed * 1_000_003 + c)
+        v = torch.randn((CHUNK,), generator=g, device=device)
+        a, b = max(lo, c * CHUNK), min(hi, total, (c + 1) * CHUNK)
+        out[a - lo:b - lo] = v[a - c * CHUNK:b - c * CHUNK] * scale
+    return out
+
+
+def seeded_flat_shard(torch, spec, shard, N, device):
+    """The FlatShard of piece ``shard`` (None: the whole padded vector) of
+    a seeded sync state: params 0.02·randn per cluster (each entry rounded
+    to its leaf's dtype), w_ref 0.02·randn, eps and e 0.001·randn."""
+    from repro_torch.core import hfl as H
+
+    sl = slice(0, spec.padded_total) if shard is None else spec.shard_slice(shard)
+    vec = lambda seed, sc: seeded_vector(torch, seed, sl.start, sl.stop,
+                                         spec.total, device, sc)
+    params = H.round_to_leaf_dtypes_(torch.stack([vec(10 + n, 0.02) for n in range(N)]),
+                                     spec, sl.start)
+    return H.FlatShard(
+        params=params.to(H.flat_params_dtype(spec)),
+        w_ref=vec(1, 0.02), eps=torch.stack([vec(20 + n, 1e-3) for n in range(N)]),
+        e=vec(2, 1e-3), spec=spec, shard=shard)
+
+
+def shard_fingerprints(torch, fs):
+    """Each field's (per-row) fingerprints of a FlatShard, positions global;
+    params as f32 (exact), so any storage dtype of them compares."""
+    off = fs.offset
+    return {f: ([fingerprint(torch, r.float(), off) for r in getattr(fs, f)]
+                if getattr(fs, f).dim() == 2 else fingerprint(torch, getattr(fs, f), off))
+            for f in ("params", "w_ref", "eps", "e")}
+
+
+def state_fingerprints(torch, state, spec):
+    """Per-row fingerprints of an HFLState's params (as f32) and eps, and
+    of w_ref and e, over the model's Q entries (padding excluded); the
+    buffers are the flat ones behind the trees (``spec``'s layout)."""
+    from repro_torch.utils import flatten as fl
+    from repro_torch.utils.tree import tree_leaves
+
+    Q, N = spec.total, tree_leaves(state.params)[0].shape[0]
+    w, e = fl.backing(state.w_ref, spec), fl.backing(state.e, spec)
+    eps = fl.backing(state.eps, spec, rows=N)
+    rows = lambda n: sum(fingerprint(torch, P[n].float(), off) for P, off in zip(
+        tree_leaves(state.params), spec.offsets)) % (1 << 64)
+    return {"params": [rows(n) for n in range(N)], "w_ref": fingerprint(torch, w[:Q]),
+            "eps": [fingerprint(torch, r[:Q]) for r in eps],
+            "e": fingerprint(torch, e[:Q])}
+
+
+def sharded_hfl(impl="fused", layout="flat", shards=1):
+    """The main path's HFL configuration (2 clusters x 2 MUs, H = 2)."""
+    from repro_torch.configs import HFLConfig, parse_tiers_spec
+
+    return HFLConfig(tiers=parse_tiers_spec(f"{N_CLUSTERS}x2:H={PERIOD}"),
+                     sync_mode="sparse", omega_impl=impl, sync_layout=layout,
+                     flat_shards=shards)
+
+
+def olmo_config(layers=None, reduced=False):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("olmo-1b")
+    cfg = cfg.reduced() if reduced else cfg
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def olmo_flat_spec(torch, shards, reduced=False):
+    """olmo-1b's padded flat layout (shapes only) in ``shards`` pieces."""
+    from repro_torch.models.transformer import init_model
+    from repro_torch.utils import flatten as fl
+
+    return fl.spec_of(init_model(None, olmo_config(reduced=reduced), device="meta"),
+                      shards=shards)
+
+
+def rank_sharded(rank, world, device="cuda", reduced=False):
+    """10b, one rank of (data, model) = (2, 2): its piece of the seeded
+    state, one mesh-sharded sync; -> its fingerprints, launches, seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import hfl as H
+    from repro_torch.kernels.fused_sync import kernel as FK
+    from repro_torch.kernels.fused_sync import ops as fops
+    from repro_torch.launch import mesh as M
+
+    mesh = M.make_host_mesh(data=2, model=2)
+    spec = olmo_flat_spec(torch, SHARDS, reduced)
+    sh = M.shard_index(mesh, ("data", "model"))
+    fs = seeded_flat_shard(torch, spec, sh, N_CLUSTERS, device)
+    sync = H.make_sync(H.SyncPlan(sharded_hfl(), mesh=mesh))
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    FK.block_select.launches, second0 = 0, fops.shard_select_candidates.second_launches
+    t0 = time.perf_counter()
+    fs = sync(fs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"coord": M.mesh_coord(mesh), "shard": sh, "backend": dist.get_backend(),
+            "sync_s": time.perf_counter() - t0,
+            "block_select_launches": FK.block_select.launches,
+            "second_launches": fops.shard_select_candidates.second_launches - second0,
+            "certificates": sync.certificates, "fingerprints": shard_fingerprints(torch, fs),
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                        if device == "cuda" else None)}
+
+
+def pod_rank_state(torch, cfg, coord, shape, device, seed):
+    """10c: the rank's blocks of a seeded pod-mesh state, built leaf by leaf
+    (no rank holds a whole cluster): params = init + 0.01·randn for the
+    rank's cluster, w_ref = init, eps = e = 0 (the reference test's first
+    sync); -> (rank HFLState, pspecs)."""
+    from repro_torch.core.hfl import HFLState
+    from repro_torch.launch.sharding import P, param_specs, rank_block
+    from repro_torch.models.transformer import init_model
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+    params = init_model(torch.Generator(device=device).manual_seed(seed), cfg,
+                        device=device)
+    pspecs = param_specs(params, data=shape["data"], model=shape["model"])
+    leaves, treedef = tree_flatten(params)
+    c = coord["pod"]
+    rows, refs = [], []
+    for i, (x, spec) in enumerate(zip(leaves, tree_flatten(pspecs)[0])):
+        g = torch.Generator(device=device).manual_seed(seed * 7919 + 31 * i + c)
+        row = (x.float() + 0.01 * torch.randn(x.shape, generator=g, device=device))
+        rows.append(rank_block(row.to(x.dtype)[None], P(None, *spec), shape, coord))
+        refs.append(rank_block(x.float(), spec, shape, coord))
+        del row
+    del params, leaves
+    un = lambda ls: tree_unflatten(treedef, ls)
+    return HFLState(params=un(rows), opt=None, w_ref=un(refs),
+                    eps=un([torch.zeros_like(r, dtype=torch.float32) for r in rows]),
+                    e=un([torch.zeros_like(r) for r in refs]), step=0), pspecs
+
+
+def pod_invariants(torch, mesh, before, after):
+    """The reference test's invariants on this rank's blocks, from zero
+    buffers: consensus (the pod peers' params equal), adoption (params =
+    w_ref cast to their dtype) and conservation (applied + buffered = the
+    mean drift, rtol 1e-4 / atol 1e-5); -> {name: bool}."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.utils.tree import tree_leaves
+
+    ok = {"consensus": True, "adoption": True, "conservation": True}
+    for P0, W0, P1, W1, E1, e1 in zip(*(tree_leaves(t) for t in (
+            before.params, before.w_ref, after.params, after.w_ref, after.eps,
+            after.e))):
+        peers = M.all_gather(P1, mesh, "pod")
+        ok["consensus"] &= bool((peers == peers[0]).all())
+        ok["adoption"] &= torch.equal(P1[0], W1.to(P1.dtype))
+        old = M.all_gather(P0, mesh, "pod").float().mean(dim=(0, 1))
+        eps = M.all_gather(E1, mesh, "pod").float().mean(dim=(0, 1))
+        ok["conservation"] &= torch.allclose((W1 - W0) + eps + e1, old - W0,
+                                             rtol=1e-4, atol=1e-5)
+    return ok
+
+
+def rank_pod(rank, world, device="cuda", layers=POD_LAYERS, reduced=False):
+    """10c, one rank of (pod, data, model) = (2, 2, 2): the pod flat layout
+    with ``pallas`` Ω and the leaf layout with ``topk`` on its blocks of
+    olmo-1b at full width (``layers`` deep), with the invariants and launch
+    counts; then both at the tests' narrow size on the card and on a CPU
+    copy, which must agree bitwise."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import hfl as H
+    from repro_torch.kernels.dgc import kernel as DK
+    from repro_torch.kernels.fused_sync import kernel as FK
+    from repro_torch.launch import mesh as M
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    mesh = M.make_host_mesh(pods=2, data=2, model=2)
+    shape, coord = M.mesh_shape(mesh), M.mesh_coord(mesh)
+    counters = (DK.update_max, DK.tail_hist, DK.apply_mask, FK.block_select)
+    cfg = olmo_config(layers, reduced)
+    narrow_cfg = ModelConfig(name="t", arch_type="dense", num_layers=2, d_model=32,
+                             num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=64,
+                             dtype="float32", remat=False)
+    runs = (("flat", "pallas"), ("leaf", "topk"))
+    out = {"coord": coord, "backend": dist.get_backend(), "runs": {}}
+    for layout, impl in runs:
+        state, pspecs = pod_rank_state(torch, cfg, coord, shape, device, 0)
+        before = state._replace(params=tree_map(torch.clone, state.params),
+                                w_ref=tree_map(torch.clone, state.w_ref))
+        sync = H.make_sync(H.SyncPlan(sharded_hfl(impl, layout), mesh=mesh,
+                                      param_specs=pspecs))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state = sync(state)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out["runs"][f"{layout} {impl}"] = {
+            "sync_s": secs, "Q_local": sum(x.numel() for x in tree_leaves(state.w_ref)),
+            "launches": {fn.__name__: fn.launches for fn in counters},
+            "invariants": pod_invariants(torch, mesh, before, state),
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                        if device == "cuda" else None)}
+        del state, before
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    # the tests' narrow size: the card against a CPU copy, bit for bit
+    equal = {}
+    for layout, impl in runs:
+        hfl = sharded_hfl(impl, layout)
+        cpu_state, pspecs = pod_rank_state(torch, narrow_cfg, coord, shape, "cpu", 1)
+        dev_state = cpu_state._replace(**{f: tree_map(lambda t: t.to(device),
+                                                      getattr(cpu_state, f))
+                                          for f in ("params", "w_ref", "eps", "e")})
+        sync = H.make_sync(H.SyncPlan(hfl, mesh=mesh, param_specs=pspecs))
+        dev_state, cpu_state = sync(dev_state), sync(cpu_state)
+        equal[f"{layout} {impl}"] = all(  # bit patterns, signs of zeros too
+            torch.equal(a.cpu().view(torch.uint8), b.view(torch.uint8))
+            for f in ("params", "w_ref", "eps", "e")
+            for a, b in zip(tree_leaves(getattr(dev_state, f)),
+                            tree_leaves(getattr(cpu_state, f))))
+    out["narrow_card_equals_cpu"] = equal
+    return out
+
+
+def sharded_paths(torch, counters, by_path, smi):
+    """Phase 10 (the sharded flat vector and the mesh syncs): 10a the train
+    CLI with ``--flat-shards 4`` at full olmo-1b width and depth, its second
+    sync rerun with the plain compaction on the card and, where every
+    certificate held, with the unsharded fused sync; 10b four gloo ranks on
+    the card, (data, model) = (2, 2), olmo-1b's full Q, against 10a's
+    emulation on the same seeded vectors; 10c eight gloo ranks, (pod, data,
+    model) = (2, 2, 2), the pod flat layout (``pallas``) and the leaf
+    layout (``topk``) at full width and ``POD_LAYERS`` layers, and both at
+    the tests' narrow size card = CPU. Adds each path's launches to
+    ``by_path``."""
+    from repro_torch.core import hfl as H
+    from repro_torch.kernels.fused_sync import kernel as FK
+    from repro_torch.kernels.fused_sync import ops as fops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train
+    from repro_torch.utils import flatten as fl
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    t10 = time.perf_counter()
+    limit = PEAK_LIMIT_GB * 1e9
+    N = N_CLUSTERS
+
+    # 10a. the train CLI with --flat-shards 4 at full olmo-1b width and depth
+    grab = {"post": [], "certs": []}
+    real_make_sync = train.make_sync
+
+    def capturing_make_sync(plan):
+        sync = real_make_sync(plan)
+        grab["sync"] = sync
+
+        def wrapped(state):
+            if len(grab["post"]) == STEPS // PERIOD - 1:  # the last sync's input
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                spec = fl.spec_of(state.w_ref, shards=SHARDS)
+                bufs = [fl.backing(state.w_ref, spec), fl.backing(state.e, spec),
+                        fl.backing(state.eps, spec, rows=N)]
+                if any(b is None for b in bufs):
+                    raise AssertionError("sharded: hfl_init's buffers are not "
+                                         "the padded flat buffers")
+                grab["pre"] = {"params": tree_map(lambda t: t.cpu(), state.params),
+                               "w_ref": bufs[0].cpu(), "e": bufs[1].cpu(),
+                               "eps": bufs[2].cpu(), "spec": spec}
+                grab["capture_s"] = time.perf_counter() - t0
+            return sync(state)
+
+        return wrapped
+
+    def on_sync(i, state, seconds):
+        t0 = time.perf_counter()
+        spec = fl.spec_of(state.w_ref, shards=SHARDS)
+        grab["certs"].append(grab["sync"].certificates)
+        grab["post"].append(state_fingerprints(torch, state, spec))
+        grab.setdefault("identical", []).append(all(
+            torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
+            for n in range(1, P.shape[0])))
+        grab["check_s"] = grab.get("check_s", 0.0) + time.perf_counter() - t0
+
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    second0 = fops.shard_select_candidates.second_launches
+    train.make_sync = capturing_make_sync
+    try:
+        out = train.run(train.parse_args(MAIN_ARGV + [
+            "--omega-impl", "fused", "--flat-shards", str(SHARDS)]), on_sync=on_sync)
+    finally:
+        train.make_sync = real_make_sync
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    second = fops.shard_select_candidates.second_launches - second0
+    syncs = STEPS // PERIOD
+    want = SHARDS * (N + 1) * syncs + second
+    by_path[f"olmo-1b fused flat_shards={SHARDS}"] = launches
+    # the host copy and the fingerprints are the checks': the copy is taken
+    # off the last sync's ms and, with the fingerprints' seconds, spread
+    # over the steps after the first, off the steady s/step
+    sync_ms = [1e3 * s for s in out["sync_s"]]
+    sync_ms[-1] -= 1e3 * grab["capture_s"]
+    steady = (out["timing"]["steady_s_per_step"]
+              - (grab["capture_s"] + grab["check_s"]) / (STEPS - 1))
+    emit({"phase": "sharded_one_process", "arch": "olmo-1b", "shards": SHARDS,
+          "tiers": MAIN_ARGV[2], "steps": STEPS, "losses": out["hist"],
+          "eval_loss": out["eval_loss"], "steady_s_per_step": steady,
+          "first_step_s": out["timing"]["compile_s"], "sync_ms": sync_ms,
+          "host_copy_s": grab["capture_s"], "fingerprint_s": grab["check_s"],
+          "max_memory_allocated_gb": peak / 1e9,
+          "launches": launches, "second_block_select_launches": second,
+          "certificates": grab["certs"], "rows_identical_after_sync": grab["identical"],
+          "card": smi})
+    if launches["block_select"] != want:
+        raise AssertionError(f"sharded: block_select launched "
+                             f"{launches['block_select']} times, want {want}")
+    if not (len(grab["identical"]) == syncs and all(grab["identical"])):
+        raise AssertionError("sharded: cluster rows differ after a sync")
+    if not (math.isfinite(out["eval_loss"]) and all(map(math.isfinite, out["hist"]))):
+        raise AssertionError("sharded: non-finite loss")
+    if peak >= limit:
+        raise AssertionError(f"sharded: peak {peak / 1e9:.1f} GB")
+    del out
+    free(torch)
+
+    def restore(pre, shards):
+        """The captured state on the card, flat-backed in the padding of
+        ``shards`` pieces (1: the unsharded layout)."""
+        spec = pre["spec"] if shards > 1 else pre["spec"]._replace(shards=1, pad=0)
+        n = spec.padded_total
+        w, w_tree = fl.flat_backed_zeros(spec, None, torch.float32, dev)
+        e, e_tree = fl.flat_backed_zeros(spec, None, torch.float32, dev)
+        eps, eps_tree = fl.flat_backed_zeros(spec, N, torch.float32, dev)
+        w.copy_(pre["w_ref"][:n])
+        e.copy_(pre["e"][:n])
+        eps.copy_(pre["eps"][:, :n])
+        return H.HFLState(params=tree_map(lambda t: t.to(dev), pre["params"]),
+                          opt=None, w_ref=w_tree, eps=eps_tree, e=e_tree, step=0), spec
+
+    # the last sync again from its input, with the plain compaction on the
+    # card: every output row bit for bit (the fingerprints)
+    real_compact = fops._compact_kernel_prefix
+    fops._compact_kernel_prefix = lambda S, th, cap: (
+        *fops._compact_plain(S, th, cap)[:3], 0)
+    try:
+        FK.block_select.launches = 0
+        state, spec = restore(grab["pre"], SHARDS)
+        sync = H.make_sync(H.SyncPlan(sharded_hfl(shards=SHARDS)))
+        state = sync(state)
+        torch.cuda.synchronize()
+        plain_equal = state_fingerprints(torch, state, spec) == grab["post"][-1]
+        plain_launches = FK.block_select.launches
+    finally:
+        fops._compact_kernel_prefix = real_compact
+    del state
+    free(torch)
+    held = all(grab["certs"][-1]["ul"]) and grab["certs"][-1]["dl"]
+    unsharded_equal = None
+    if held:  # the certificate held on every hop: the unsharded fused sync's
+        state, spec = restore(grab["pre"], 1)
+        state = H.make_sync(H.SyncPlan(sharded_hfl()))(state)
+        torch.cuda.synchronize()
+        unsharded_equal = state_fingerprints(torch, state, spec) == grab["post"][-1]
+        del state
+        free(torch)
+    del grab["pre"]
+    emit({"check": "sharded_rerun", "sync": syncs, "certificates": grab["certs"][-1],
+          "plain_compaction_equal": plain_equal,
+          "plain_compaction_block_select_launches": plain_launches,
+          "unsharded_fused_equal": unsharded_equal})
+    if not plain_equal or plain_launches:
+        raise AssertionError("sharded: block_select's compaction and the plain "
+                             "one differ on the card")
+    if held and not unsharded_equal:
+        raise AssertionError("sharded: the certificate held, but the state "
+                             "differs from the unsharded fused sync's")
+
+    # 10b. four gloo ranks on the card, (data, model) = (2, 2), full Q
+    t0 = time.perf_counter()
+    spec = olmo_flat_spec(torch, SHARDS)
+    fs = seeded_flat_shard(torch, spec, None, N, dev)
+    emu = H.make_sync(H.SyncPlan(sharded_hfl(shards=SHARDS)))
+    fs = emu(fs)
+    torch.cuda.synchronize()
+    emu_s = time.perf_counter() - t0
+    L, Q = spec.local_size, spec.total
+    want_fp = [shard_fingerprints(torch, fs._replace(
+        params=fs.params[:, sl], w_ref=fs.w_ref[sl], eps=fs.eps[:, sl], e=fs.e[sl],
+        shard=sh)) for sh, sl in ((sh, spec.shard_slice(sh)) for sh in range(SHARDS))]
+    whole_fp = shard_fingerprints(torch, fs._replace(
+        params=fs.params[:, :Q], w_ref=fs.w_ref[:Q], eps=fs.eps[:, :Q], e=fs.e[:Q]))
+    emu_certs = emu.certificates
+    del fs
+    free(torch)
+    held = all(emu_certs["ul"]) and emu_certs["dl"]
+    unsharded_equal = None
+    if held:  # every certificate held: the unsharded fused sync's answer
+        fs = seeded_flat_shard(torch, spec._replace(shards=1, pad=0), None, N, dev)
+        state = H.HFLState(
+            params=fl.unpack_stacked(fs.params, spec), opt=None,
+            w_ref=fl.unpack(fs.w_ref, spec._replace(dtypes=(torch.float32,) * len(
+                spec.dtypes), shards=1, pad=0)),
+            eps=fl.unpack_stacked(fs.eps, spec._replace(dtypes=(torch.float32,) * len(
+                spec.dtypes), shards=1, pad=0)),
+            e=fl.unpack(fs.e, spec._replace(dtypes=(torch.float32,) * len(
+                spec.dtypes), shards=1, pad=0)), step=0)
+        del fs
+        state = H.make_sync(H.SyncPlan(sharded_hfl()))(state)
+        torch.cuda.synchronize()
+        unsharded_equal = state_fingerprints(
+            torch, state, spec._replace(shards=1, pad=0)) == whole_fp
+        del state
+        free(torch)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ranks_dir = ROOT / "build" / "chip_smoke_ranks"
+    t0 = time.perf_counter()
+    infos = M.run_ranks(f"{ROOT / 'chip_smoke.py'}:rank_sharded", SHARDS, {},
+                        ranks_dir / "10b", device="cuda", backend="gloo",
+                        timeout_s=RANK_TIMEOUT_S, env=env)
+    ranks_s = time.perf_counter() - t0
+    for info in infos:
+        emit({"phase": "sharded_mesh", "backend": info["backend"], "coord": info["coord"],
+              "shard": info["shard"], "Q": spec.total, "local_size": L,
+              "sync_s": info["sync_s"], "block_select_launches": info["block_select_launches"],
+              "second_block_select_launches": info["second_launches"],
+              "certificates": info["certificates"],
+              "max_memory_allocated_gb": info["max_memory_allocated_gb"],
+              "equals_emulation": info["fingerprints"] == want_fp[info["shard"]]})
+        if info["fingerprints"] != want_fp[info["shard"]]:
+            raise AssertionError(f"sharded mesh: shard {info['shard']} differs "
+                                 "from the single-process emulation")
+        if info["certificates"] != emu_certs:
+            raise AssertionError("sharded mesh: certificates differ")
+        if info["block_select_launches"] != (N + 1) + info["second_launches"]:
+            raise AssertionError(f"sharded mesh: rank {info['coord']} launched "
+                                 f"block_select {info['block_select_launches']} times")
+    by_path["olmo-1b sharded mesh, 4 gloo ranks"] = dict(
+        {k: 0 for k in counters},
+        block_select=sum(i["block_select_launches"] for i in infos))
+    emit({"phase": "sharded_mesh_done", "backend": "gloo", "ranks": SHARDS,
+          "emulation_s": emu_s, "ranks_s": ranks_s, "certificates": emu_certs,
+          "emulation_equals_unsharded_fused": unsharded_equal})
+    if held and not unsharded_equal:
+        raise AssertionError("sharded: the certificate held, but the emulation "
+                             "differs from the unsharded fused sync")
+
+    # 10c. eight gloo ranks, (pod, data, model) = (2, 2, 2)
+    t0 = time.perf_counter()
+    infos = M.run_ranks(f"{ROOT / 'chip_smoke.py'}:rank_pod", 8,
+                        {"layers": POD_LAYERS}, ranks_dir / "10c", device="cuda",
+                        backend="gloo", timeout_s=RANK_TIMEOUT_S, env=env)
+    pod_want = {"flat pallas": {"update_max": 2, "tail_hist": 2},
+                "leaf topk": {}}
+    for info in infos:
+        emit({"phase": "pod_mesh", "backend": info["backend"], "coord": info["coord"],
+              "layers": POD_LAYERS, "runs": info["runs"],
+              "narrow_card_equals_cpu": info["narrow_card_equals_cpu"]})
+        for run, r in info["runs"].items():
+            got = {k: v for k, v in r["launches"].items() if v}
+            if got != pod_want[run]:
+                raise AssertionError(f"pod mesh {run}: rank {info['coord']} "
+                                     f"launched {got}, want {pod_want[run]}")
+            if not all(r["invariants"].values()):
+                raise AssertionError(f"pod mesh {run}: rank {info['coord']} "
+                                     f"invariants {r['invariants']}")
+        if not all(info["narrow_card_equals_cpu"].values()):
+            raise AssertionError(f"pod mesh: rank {info['coord']}: the card and "
+                                 f"the CPU differ {info['narrow_card_equals_cpu']}")
+    for run in pod_want:
+        by_path[f"olmo-1b pod mesh {run}, 8 gloo ranks"] = {
+            k: sum(i["runs"][run]["launches"].get(k, 0) for i in infos)
+            for k in counters}
+        peaks = sum(i["runs"][run]["max_memory_allocated_gb"] for i in infos)
+        if peaks * 1e9 >= limit:
+            raise AssertionError(f"pod mesh {run}: the ranks' peaks add up to "
+                                 f"{peaks:.1f} GB")
+    emit({"phase": "pod_mesh_done", "backend": "gloo", "ranks": 8,
+          "ranks_s": time.perf_counter() - t0})
+    emit({"phase": "sharded_paths_done", "seconds": time.perf_counter() - t10})
     free(torch)
 
 
@@ -2052,7 +2596,10 @@ def main(argv):
     # ---- 9. the model families ---------------------------------------------
     model_families(torch, counters, by_path, smi)
 
-    # ---- 10. kernel summary -------------------------------------------------
+    # ---- 10. the sharded flat vector and the mesh syncs ---------------------
+    sharded_paths(torch, counters, by_path, smi)
+
+    # ---- 11. kernel summary -------------------------------------------------
     meta = {
         "block_select": ("src/repro_torch/csrc/fused_sync.cu",
                          "src/repro/kernels/fused_sync/kernel.py:67"),

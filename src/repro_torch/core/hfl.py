@@ -66,7 +66,8 @@ class HFLState(NamedTuple):
 
 def hfl_init(params_single, optimizer, hfl_cfg, *, buffer_dtype=torch.float32):
     """HFLState with the single model replicated over N clusters; w_ref,
-    eps and e are flat-backed buffers of ``buffer_dtype``."""
+    eps and e are flat-backed buffers of ``buffer_dtype`` (with
+    ``hfl_cfg.flat_shards`` > 1 of the padded length)."""
     N = hfl_cfg.num_clusters
     rep = tree_map(lambda p: p.unsqueeze(0).repeat((N,) + (1,) * p.dim()),
                    params_single)
@@ -74,7 +75,9 @@ def hfl_init(params_single, optimizer, hfl_cfg, *, buffer_dtype=torch.float32):
     # scalar of the single model's state becomes one entry per cluster
     opt = {k: (v.repeat(N) if torch.is_tensor(v) and v.dim() == 0 else v)
            for k, v in optimizer.init(rep).items()}
-    spec = fl.spec_of(params_single)
+    # padded to whole shards when the flat vector is sharded, so the
+    # sharded sync finds and updates these buffers in place too
+    spec = fl.spec_of(params_single, shards=getattr(hfl_cfg, "flat_shards", 1))
     dev = tree_leaves(params_single)[0].device
     wref_buf, w_ref = fl.flat_backed_zeros(spec, None, buffer_dtype, dev)
     for i, p in enumerate(tree_leaves(params_single)):
@@ -193,11 +196,14 @@ def _q8_code_scale(x):
 
 
 def _f32_buffer(tree, spec, rows=None):
-    """The f32 flat buffer behind a flat-backed tree, else a packed copy."""
+    """The f32 flat buffer behind a flat-backed tree, else a packed copy
+    (padded as ``spec``)."""
     base = fl.backing(tree, spec, rows)
     if base is not None and base.dtype == torch.float32:
         return base
-    return fl.pack(tree)[0] if rows is None else fl.pack_stacked(tree)[0]
+    if rows is None:
+        return fl.pack(tree, shards=spec.shards)[0]
+    return fl.pack_stacked(tree, shards=spec.shards)[0]
 
 
 def _drift_(out, child, parent, beta_up: float, spec, eps=None):
@@ -278,10 +284,11 @@ def _group_(tc, impl: str, wire, drifts, err_row, acc, on_up=None):
     return _payload(err, tc.phi_down, impl, wire)
 
 
-def _sync_buffers(state: HFLState, N: int):
-    """(w_ref, e, eps) as f32 flat buffers, with their specs."""
-    ref_spec = fl.spec_of(state.w_ref)
-    eps_spec = fl.spec_of_stacked(state.eps)
+def _sync_buffers(state: HFLState, N: int, shards: int = 1):
+    """(w_ref, e, eps) as f32 flat buffers, with their specs (``shards``:
+    the padded layout)."""
+    ref_spec = fl.spec_of(state.w_ref, shards=shards)
+    eps_spec = fl.spec_of_stacked(state.eps, shards=shards)
     return (_f32_buffer(state.w_ref, ref_spec), _f32_buffer(state.e, ref_spec),
             _f32_buffer(state.eps, eps_spec, rows=N), ref_spec, eps_spec)
 
@@ -446,6 +453,182 @@ def _make_dense_sync(hfl_cfg, collect_stats: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# Sharded flat layout: the padded flat vector in contiguous pieces
+# ---------------------------------------------------------------------------
+
+
+class FlatShard(NamedTuple):
+    """A piece of the padded flat state: what the reference's sharded
+    ``shard_map`` hands one device, and the state the mesh-sharded sync
+    updates in place. w_ref, eps and e are f32; ``params`` is of the
+    model's dtype when all its leaves share one (clusters adopt w_ref cast
+    to it), else f32 holding each entry as a value of its leaf's dtype.
+    ``spec`` is the whole model's padded FlatSpec of the params;
+    ``shard`` is the piece's index, None for the whole padded vector (what
+    the single-process sharded sync takes)."""
+
+    params: torch.Tensor  # [N, L]
+    w_ref: torch.Tensor   # [L]
+    eps: torch.Tensor     # [N, L]
+    e: torch.Tensor       # [L]
+    spec: Any
+    shard: Optional[int] = None
+
+    @property
+    def offset(self) -> int:
+        return 0 if self.shard is None else self.shard * self.spec.local_size
+
+
+def _piece_drift_(fs: FlatShard, beta_up: float) -> None:
+    """eps <- fma(β_s, eps, params - w_ref), row by row (``_pack_drift`` on
+    a piece)."""
+    for n in range(fs.eps.shape[0]):
+        fs.eps[n].copy_(axpy_(fs.params[n].float() - fs.w_ref, beta_up, fs.eps[n]))
+
+
+def flat_params_dtype(spec):
+    """The dtype of a ``FlatShard``'s params: the leaves' common dtype, or
+    f32 when they differ."""
+    return spec.dtypes[0] if len(set(spec.dtypes)) == 1 else torch.float32
+
+
+def round_to_leaf_dtypes_(x, spec, off: int = 0):
+    """Each entry of the f32 rows ``x`` [..., L] (positions [off, off + L)
+    of the flat layout ``spec``) rounded to its leaf's dtype, in place;
+    -> x."""
+    L = x.shape[-1]
+    for i, dt in enumerate(spec.dtypes):
+        lo = max(off, spec.offsets[i])
+        hi = min(off + L, spec.offsets[i] + spec.sizes[i])
+        if lo < hi and dt != torch.float32:
+            x[..., lo - off:hi - off] = x[..., lo - off:hi - off].to(dt).float()
+    return x
+
+
+def _adopt_piece_(fs: FlatShard) -> None:
+    """Every row of params <- w_ref cast to its entry's leaf dtype."""
+    fs.params.copy_(fs.w_ref.expand_as(fs.params))
+    if fs.params.dtype == torch.float32:  # else the copy cast it already
+        round_to_leaf_dtypes_(fs.params, fs.spec, fs.offset)
+
+
+def _local(idx, vals, off: int, L: int):
+    """The entries of a global (indices, values) row that fall in this
+    piece [off, off + L), at local int64 positions: pads and other pieces'
+    entries add nothing (the reference adds 0.0 for them)."""
+    loc = idx.long() - off
+    keep = (loc >= 0) & (loc < L)
+    return loc[keep], vals[keep]
+
+
+def _sharded_select(X, k: int, spec, gather=None, off: int = 0):
+    """Stage 1 of every shard, then the merge: the reference's
+    ``_sharded_select`` -> (vals [R, k], GLOBAL idx [R, k], exact [R]).
+
+    Without ``gather``, ``X`` [R, padded_total] holds every piece and each
+    shard's stage 1 runs here (the single-process emulation); with it,
+    ``X`` [R, L] is this rank's piece at ``off`` and ``gather(t)`` stacks
+    every rank's stage-1 outputs shard-major [S, ...]. Either way the
+    merge sees the same candidates in the same order, so the mesh and the
+    emulation are bit-identical. The pad index is ``padded_total``. Rows
+    go one at a time, so one row's candidates of every shard are alive at
+    once."""
+    from repro_torch.kernels.fused_sync import ops as fops
+
+    S, L, Qp = spec.shards, spec.local_size, spec.padded_total
+
+    def stage1(piece, at: int):
+        v, i, m, th = fops.shard_select_candidates(piece, k, S)
+        return v, torch.where(i < L, i + at, torch.full_like(i, Qp)), m, th
+
+    outs = []
+    for r in range(X.shape[0]):
+        if gather is None:
+            parts = [stage1(X[r:r + 1, sh * L:(sh + 1) * L], sh * L)
+                     for sh in range(S)]
+            cv, ci, m, th = (torch.cat([p[j].reshape(1, -1) for p in parts], dim=1)
+                             for j in range(4))
+            del parts
+        else:  # [S, 1, ...] shard-major: its rows are one contiguous row
+            cv, ci, m, th = (gather(t).reshape(1, -1)
+                             for t in stage1(X[r:r + 1], off))
+        outs.append(fops.merge_shard_candidates(cv, ci, m, th, k))
+        del cv, ci
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
+
+
+def _sharded_payloads_(hfl_cfg, s, wref, e, spec, select, off: int, certs):
+    """One sharded sync on a piece [off, off + L) in place: s [N, L] holds
+    the drift and is left with the residuals, e is left with the new
+    downlink error and w_ref with w_ref + d. ``select(X, k)`` is the
+    sharded Ω (global indices); each hop's exactness certificates are
+    appended to ``certs`` (advisory, as in the reference: an overflowing
+    shard's merged union top-k is used as it is)."""
+    tier = hfl_cfg.tiers[1]
+    wire = wire_format_of(hfl_cfg)
+    N, L = s.shape
+    vals, idx, exact = select(s, sp.keep_count(spec.total, tier.phi_up))
+    certs.append(exact)
+    if wire:
+        vals = _wire_round_rows(vals, wire)
+    acc = torch.zeros((L,), dtype=torch.float32, device=s.device)
+    for n in range(N):  # Σ sent in cluster order; s_n - sent_n in s
+        loc, v = _local(idx[n], vals[n], off, L)
+        acc.index_add_(0, loc, v)
+        s[n].index_add_(0, loc, -v)
+    del vals, idx
+    _consensus_delta(e, acc, N, tier.beta_down)
+    del acc
+    dvals, didx, exact = select(e[None, :], sp.keep_count(spec.total, tier.phi_down))
+    certs.append(exact)
+    dvals = dvals[0]
+    if wire:
+        dvals = _wire_round_rows(dvals, wire)
+    loc, v = _local(didx[0], dvals, off, L)
+    wref.index_add_(0, loc, v)   # new w_ref = w_ref + d
+    e.index_add_(0, loc, -v)     # new e = δ - d
+
+
+def _certified(certs) -> dict:
+    """{"ul": [bool per cluster], "dl": bool} of one sync's certificates."""
+    return {"ul": [bool(x) for x in certs[0]], "dl": bool(certs[1][0])}
+
+
+def _make_flat_sharded_sync(hfl_cfg, shards: int):
+    """Single-process sharded flat sync (``repro.core.hfl.
+    _make_flat_sharded_local_sync``): the padded flat vector as ``shards``
+    contiguous pieces, stage-1 selection per piece, the merge finishing
+    the whole-vector Ω; in place on the state's buffers. It takes an
+    HFLState, or a whole-vector ``FlatShard``. ``sync.certificates`` holds
+    the last call's exactness certificates."""
+    N, S = hfl_cfg.num_clusters, shards
+    beta_up = hfl_cfg.tiers[1].beta_up
+
+    def sharded_sync(state):
+        certs = []
+        if isinstance(state, FlatShard):
+            if state.shard is not None or state.spec.shards != S:
+                raise ValueError("the single-process sharded sync takes the "
+                                 f"whole padded vector of a {S}-shard spec")
+            _piece_drift_(state, beta_up)
+            select = lambda X, k: _sharded_select(X, k, state.spec)
+            _sharded_payloads_(hfl_cfg, state.eps, state.w_ref, state.e,
+                               state.spec, select, 0, certs)
+            _adopt_piece_(state)
+        else:
+            wref, e, s, ref_spec, eps_spec = _sync_buffers(state, N, shards=S)
+            _pack_drift(s, state.params, wref, beta_up, ref_spec)
+            select = lambda X, k: _sharded_select(X, k, ref_spec)
+            _sharded_payloads_(hfl_cfg, s, wref, e, ref_spec, select, 0, certs)
+            state = _unpack_ref_outputs(state, wref, e, s, ref_spec, eps_spec)
+        sharded_sync.certificates = _certified(certs)
+        return state
+
+    sharded_sync.certificates = None
+    return sharded_sync
+
+
+# ---------------------------------------------------------------------------
 # Leaf layout: the legacy per-tensor Ω
 # ---------------------------------------------------------------------------
 
@@ -521,6 +704,315 @@ def _make_leaf_sync(hfl_cfg):
         return state
 
     return leaf_sync
+
+
+# ---------------------------------------------------------------------------
+# Mesh syncs over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def _in_pod_axes(shape: dict) -> tuple:
+    return tuple(a for a in ("data", "model") if shape.get(a, 1) > 1)
+
+
+def mesh_route(plan, shape: dict) -> str:
+    """The sync ``plan`` builds on a mesh of ``shape`` ({axis: size}), as
+    the reference routes it: "pod" (a "pod" axis: each rank exchanges its
+    blocks' payloads with its pod peers), "sharded" (fused Ω, flat layout,
+    a pod-less mesh whose ("data", "model") extent is > 1: the flat vector
+    shards over those axes) or "local" (every rank runs the single-process
+    sync on the whole state, which is what the reference computes there)."""
+    hfl_cfg = plan.hfl
+    if "pod" in shape:
+        return "pod"
+    layout = plan.layout or hfl_cfg.sync_layout
+    if (hfl_cfg.sync_mode != "dense" and layout == "flat"
+            and hfl_cfg.omega_impl == "fused"
+            and int(np.prod([shape[a] for a in _in_pod_axes(shape)])) > 1):
+        return "sharded"
+    return "local"
+
+
+def _pod_specs(plan, state_tree):
+    """Per-leaf specs of the pod route: ``param_specs``, or every leaf
+    replicated over ("data", "model") where the plan has none (dense)."""
+    from repro_torch.launch.sharding import P
+
+    if plan.param_specs is not None:
+        return tree_leaves(plan.param_specs)
+    return [P() for _ in tree_leaves(state_tree)]
+
+
+def rank_state(state: HFLState, plan, shape: dict, coord: dict):
+    """The rank-local state of the mesh sync ``plan`` builds, for the rank
+    at ``coord`` ({axis: index}) of a mesh of ``shape``, cut from the whole
+    ``state`` (copies): what the reference's ``shard_map`` hands that
+    device. "pod": an HFLState of blocks under ``param_specs``, params and
+    eps ``[C, *loc]`` with the pod axis on the clusters, w_ref and e
+    ``[*loc]`` (opt is not part of it); "sharded": the rank's
+    ``FlatShard`` (f32 buffers only); "local": ``state`` itself."""
+    from repro_torch.launch.sharding import P, rank_block
+
+    route = mesh_route(plan, shape)
+    if route == "local":
+        return state
+    if route == "sharded":
+        axes = _in_pod_axes(shape)
+        S = int(np.prod([shape[a] for a in axes]))
+        sh = 0
+        for a in axes:
+            sh = sh * shape[a] + coord[a]
+        for t in (state.w_ref, state.eps, state.e):
+            if any(l.dtype != torch.float32 for l in tree_leaves(t)):
+                raise ValueError("the sharded mesh sync keeps f32 buffers")
+        spec = fl.spec_of_stacked(state.params, shards=S)
+        sl = spec.shard_slice(sh)
+        piece = lambda x: x[..., sl].clone()
+        return FlatShard(
+            params=piece(fl.pack_stacked(state.params, shards=S,
+                                         dtype=flat_params_dtype(spec))[0]),
+            w_ref=piece(fl.pack(state.w_ref, shards=S)[0]),
+            eps=piece(fl.pack_stacked(state.eps, shards=S)[0]),
+            e=piece(fl.pack(state.e, shards=S)[0]), spec=spec, shard=sh)
+    specs = _pod_specs(plan, state.w_ref)
+    cut = lambda tree, lead: tree_unflatten(tree_flatten(tree)[1], [
+        rank_block(x, P(*lead, *sp_), shape, coord)
+        for x, sp_ in zip(tree_leaves(tree), specs)])
+    return state._replace(params=cut(state.params, ("pod",)),
+                          w_ref=cut(state.w_ref, ()), eps=cut(state.eps, ("pod",)),
+                          e=cut(state.e, ()), opt=None)
+
+
+def _spec_axes(spec) -> set:
+    return {a for e in spec if e is not None
+            for a in ((e,) if isinstance(e, str) else e)}
+
+
+def merge_rank_states(state: HFLState, plan, shape: dict, pieces) -> HFLState:
+    """The whole state again from every rank's ``(coord, rank state)``
+    (``rank_state``'s inverse); ``state`` gives the trees, dtypes, opt and
+    step. A block that several ranks hold (its leaf is replicated over an
+    axis) is taken from the rank at index 0 of that axis, as jax assembles
+    a ``shard_map`` output: on the pod flat layout the replicas differ,
+    since each rank's Ω runs over its whole local vector."""
+    from repro_torch.launch.sharding import P, place_block
+
+    route = mesh_route(plan, shape)
+    if route == "local":
+        return pieces[0][1]
+    if route == "sharded":
+        order = sorted(pieces, key=lambda cp: cp[1].shard)
+        cat = lambda f: torch.cat([getattr(p, f) for _, p in order], dim=-1)
+        S = order[0][1].spec.shards
+        return state._replace(
+            params=fl.unpack_stacked(cat("params"), fl.spec_of_stacked(state.params, shards=S)),
+            w_ref=fl.unpack(cat("w_ref"), fl.spec_of(state.w_ref, shards=S)),
+            eps=fl.unpack_stacked(cat("eps"), fl.spec_of_stacked(state.eps, shards=S)),
+            e=fl.unpack(cat("e"), fl.spec_of(state.e, shards=S)))
+    specs = _pod_specs(plan, state.w_ref)
+
+    def put(field, lead):
+        leaves, treedef = tree_flatten(getattr(state, field))
+        out = [torch.empty_like(x) for x in leaves]
+        for coord, p in pieces:
+            for o, b, sp_ in zip(out, tree_leaves(getattr(p, field)), specs):
+                spec = P(*lead, *sp_)
+                if any(coord[a] for a in shape if a not in _spec_axes(spec)):
+                    continue  # a replica: jax keeps the one at index 0
+                place_block(o, b, spec, shape, coord)
+        return tree_unflatten(treedef, out)
+
+    return state._replace(params=put("params", ("pod",)), w_ref=put("w_ref", ()),
+                          eps=put("eps", ("pod",)), e=put("e", ()))
+
+
+def _make_mesh_sharded_sync(hfl_cfg, mesh):
+    """The flat vector sharded over the in-pod ("data", "model") axes
+    (``repro.core.hfl._make_flat_sharded_sync``): each rank holds one
+    contiguous piece (a ``FlatShard``), runs the per-shard compaction on
+    it and gathers only the compacted candidates of every shard; the
+    merge is the same replicated math on every rank, and each rank applies
+    the entries of its own piece. In place; ``sync.certificates`` as the
+    single-process sync's."""
+    from repro_torch.launch import mesh as M
+
+    axes = _in_pod_axes(M.mesh_shape(mesh))
+    S = int(np.prod([M.axis_size(mesh, a) for a in axes]))
+    beta_up = hfl_cfg.tiers[1].beta_up
+    gather = lambda t: M.gather_shard_major(t, mesh, axes)
+
+    def sharded_sync(fs: FlatShard):
+        if fs.spec.shards != S or fs.shard != M.shard_index(mesh, axes):
+            raise ValueError(f"this rank holds shard {M.shard_index(mesh, axes)} "
+                             f"of {S}; got shard {fs.shard} of {fs.spec.shards}")
+        certs = []
+        _piece_drift_(fs, beta_up)
+        select = lambda X, k: _sharded_select(X, k, fs.spec, gather, fs.offset)
+        _sharded_payloads_(hfl_cfg, fs.eps, fs.w_ref, fs.e, fs.spec, select,
+                           fs.offset, certs)
+        _adopt_piece_(fs)
+        sharded_sync.certificates = _certified(certs)
+        return fs
+
+    sharded_sync.certificates = None
+    return sharded_sync
+
+
+def _gather_pod(vals, idx, mesh, wire):
+    """Every pod's (values, indices) payload rows, pod-major and flat: 2·C·k
+    entries each. Under the bf16 wire the values travel as bf16 (lossless:
+    they are already rounded)."""
+    from repro_torch.launch import mesh as M
+
+    if wire == "bf16":
+        vals = vals.to(torch.bfloat16)
+    all_v = M.all_gather(vals, mesh, "pod").float().reshape(-1)
+    return all_v, M.all_gather(idx, mesh, "pod").reshape(-1).long()
+
+
+def _write_back_(state: HFLState, wref, e, s, spec) -> None:
+    """Each leaf of the rank's blocks <- its slice of the f32 results (the
+    clusters adopt w_ref, cast to their dtype)."""
+    for i, (P, R, Ep, E) in enumerate(zip(
+            tree_leaves(state.params), tree_leaves(state.w_ref),
+            tree_leaves(state.eps), tree_leaves(state.e))):
+        sl = spec.leaf_slice(i)
+        w = wref[sl].view(R.shape)
+        P.copy_(w.to(P.dtype).expand_as(P))
+        R.copy_(w)
+        Ep.copy_(s[:, sl].view(Ep.shape))
+        E.copy_(e[sl].view(E.shape))
+
+
+def _make_pod_flat_sync(hfl_cfg, mesh):
+    """``repro.core.hfl._flat_shard_sync`` on each rank: its blocks packed
+    into one local flat vector (the layout is the same on every pod peer,
+    so a local index names the same entry there), one Ω per hosted cluster
+    with ``omega_impl``, one "pod" all-gather of the payloads, the
+    scatter-add consensus, one Ω downlink; in place on the blocks."""
+    tier, N = hfl_cfg.tiers[1], hfl_cfg.num_clusters
+    impl, wire = hfl_cfg.omega_impl, wire_format_of(hfl_cfg)
+
+    def pod_flat_sync(state: HFLState):
+        wref, ref_spec = fl.pack(state.w_ref)
+        e = fl.pack(state.e)[0]
+        s = fl.pack_stacked(state.eps)[0]
+        _pack_drift(s, state.params, wref, tier.beta_up, ref_spec)
+        sent = []
+        for c in range(s.shape[0]):  # C = N / pods clusters on this rank
+            v, i = _payload(s[c], tier.phi_up, impl, wire)
+            s[c].index_add_(0, i.long(), -v)  # eps = s - sent
+            sent.append((v, i))
+        all_v, all_i = _gather_pod(torch.stack([v for v, _ in sent]),
+                                   torch.stack([i for _, i in sent]), mesh, wire)
+        del sent
+        acc = torch.zeros_like(e).index_add_(0, all_i, all_v)
+        # δ = scatter / N + β_m·e compiles, like the local mean, to
+        # fma(scatter, 1/N, β_m·e) (the mesh tests tell the forms apart)
+        _consensus_delta(e, acc, N, tier.beta_down)
+        dvals, didx = _payload(e, tier.phi_down, impl, wire)
+        didx = didx.long()
+        wref.index_add_(0, didx, dvals)
+        e.index_add_(0, didx, -dvals)
+        _write_back_(state, wref, e, s, ref_spec)
+        return state
+
+    return pod_flat_sync
+
+
+def _make_pod_leaf_sync(hfl_cfg, mesh):
+    """``repro.core.hfl._leaf_sync_sparse(axis="pod")`` on each rank: every
+    leaf block runs its own exact top-k uplink, "pod" all-gather, consensus
+    and downlink. One cluster per pod, as in the reference (it reads row 0
+    of each block)."""
+    tier, N = hfl_cfg.tiers[1], hfl_cfg.num_clusters
+    wire = wire_format_of(hfl_cfg)
+
+    def pod_leaf_sync(state: HFLState):
+        for P, R, Ep, E in zip(tree_leaves(state.params), tree_leaves(state.w_ref),
+                               tree_leaves(state.eps), tree_leaves(state.e)):
+            if P.shape[0] != 1:
+                raise ValueError("the leaf layout on a pod mesh hosts one "
+                                 "cluster per pod")
+            size = R.numel()
+            wref = R.reshape(-1).float()
+            s = axpy_(P[0].reshape(-1).float() - wref, tier.beta_up,
+                      Ep[0].reshape(-1).float())
+            vals, idx = sp.pack_topk(s, sp.keep_count(size, tier.phi_up))
+            if wire:
+                vals = _wire_round_rows(vals, wire)
+            s.index_add_(0, idx.long(), -vals)  # eps = s - sent
+            all_v, all_i = _gather_pod(vals[None], idx[None], mesh, wire)
+            acc = torch.zeros((size,), dtype=torch.float32, device=wref.device)
+            acc.index_add_(0, all_i, all_v)
+            delta = E.reshape(-1).float().clone()
+            _consensus_delta(delta, acc, N, tier.beta_down)
+            dvals, didx = sp.pack_topk(delta, sp.keep_count(size, tier.phi_down))
+            if wire:
+                dvals = _wire_round_rows(dvals, wire)
+            d = sp.unpack_topk(dvals, didx, size)
+            new = (wref + d).view(R.shape)
+            E.copy_((delta - d).view(E.shape))
+            Ep[0].copy_(s.view(Ep.shape[1:]))
+            P.copy_(new.to(P.dtype).expand_as(P))
+            R.copy_(new)
+        return state
+
+    return pod_leaf_sync
+
+
+def _make_pod_dense_sync(hfl_cfg, mesh):
+    """Dense averaging on a pod mesh: each block's rows of every pod,
+    gathered over "pod", averaged as the single-process dense sync does."""
+    from repro_torch.launch import mesh as M
+
+    N = hfl_cfg.num_clusters
+
+    def pod_dense_sync(state: HFLState):
+        for P, R in zip(tree_leaves(state.params), tree_leaves(state.w_ref)):
+            rows = M.all_gather(P, mesh, "pod").reshape((N,) + P.shape[1:])
+            acc = rows[0].float().clone()
+            for n in range(1, N):
+                acc.add_(rows[n].float())
+            mean = acc.mul_(recip_f32(N))
+            P.copy_(mean.to(P.dtype).expand_as(P))
+            R.copy_(mean.to(R.dtype))
+        return state
+
+    return pod_dense_sync
+
+
+def _make_mesh_sync(plan):
+    """The sync of ``plan`` on its mesh (see ``mesh_route``), with the
+    reference's rejections; None for the "local" route."""
+    from repro_torch.launch import mesh as M
+
+    hfl_cfg = plan.hfl
+    route = mesh_route(plan, M.mesh_shape(plan.mesh))
+    if route == "local":
+        return None
+    if plan.collect_stats:
+        raise ValueError(f"collect_stats is not supported on the {route} mesh "
+                         "sync path (local flat topk/fused and dense only)")
+    mode = hfl_cfg.sync_mode
+    layout = plan.layout or hfl_cfg.sync_layout
+    if route == "sharded":
+        return _make_mesh_sharded_sync(hfl_cfg, plan.mesh)
+    if mode == "dense":
+        return _make_pod_dense_sync(hfl_cfg, plan.mesh)
+    if mode not in ("sparse", "quantized_sparse"):
+        raise ValueError(mode)
+    if layout not in ("flat", "leaf"):
+        raise ValueError(layout)
+    if plan.param_specs is None:
+        raise ValueError("sparse sync on a pod mesh needs param_specs")
+    pods = M.axis_size(plan.mesh, "pod")
+    if hfl_cfg.num_clusters % pods:
+        raise ValueError(f"{hfl_cfg.num_clusters} clusters do not split over "
+                         f"{pods} pods")
+    if layout == "flat":
+        return _make_pod_flat_sync(hfl_cfg, plan.mesh)
+    return _make_pod_leaf_sync(hfl_cfg, plan.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -820,6 +1312,12 @@ def wire_format_of(hfl_cfg) -> Optional[str]:
     return hfl_cfg.wire_format
 
 
+def _no_stats(plan, path: str) -> None:
+    if plan.collect_stats:
+        raise ValueError(f"collect_stats is not supported on the {path} sync "
+                         f"path (local flat topk/fused and dense only)")
+
+
 @dataclass(frozen=True)
 class SyncPlan:
     """Resolved spec of one consensus step build (see ``repro.core.hfl``)."""
@@ -832,12 +1330,13 @@ class SyncPlan:
 
 
 def make_sync(plan: SyncPlan):
-    """The consensus step of ``plan``, single process: depth 2 dense, flat
-    (or fused) and leaf layouts, the flat and dense ones optionally with
-    in-sync statistics (``collect_stats``: the sync returns ``(state,
-    stats)``); depth > 2 a :class:`HierSyncStep`, with the reference's
-    rejections. Mesh syncs and ``flat_shards > 1`` raise, naming the
-    ROADMAP item that ports them."""
+    """The consensus step of ``plan``: depth 2 dense, flat (or fused) and
+    leaf layouts, the flat and dense ones optionally with in-sync
+    statistics (``collect_stats``: the sync returns ``(state, stats)``);
+    ``flat_shards > 1`` (fused Ω) the single-process sharded flat sync;
+    on a mesh (``plan.mesh``, a ``launch.mesh`` DeviceMesh) the route of
+    ``mesh_route``, each rank passing its rank-local state (``rank_state``);
+    depth > 2 a :class:`HierSyncStep`. The reference's rejections hold."""
     hfl_cfg = plan.hfl
     layout = plan.layout or hfl_cfg.sync_layout
     if len(hfl_cfg.tiers) > 2:
@@ -851,30 +1350,35 @@ def make_sync(plan: SyncPlan):
         if layout != "flat":
             raise ValueError("depth > 2 hierarchies run the flat layout only")
         return HierSyncStep(hfl_cfg)
-    if plan.mesh is not None or plan.param_specs is not None:
-        raise NotImplementedError("mesh syncs are not ported yet: "
-                                  "ROADMAP Queue 1 item 16")
     mode = hfl_cfg.sync_mode
     _count_build("sync_step", mode=mode, layout=layout,
                  impl=hfl_cfg.omega_impl)
+    if plan.mesh is not None:
+        sync = _make_mesh_sync(plan)
+        if sync is not None:
+            sync.collect_stats = False
+            return sync
     if mode == "dense":
         sync = _make_dense_sync(hfl_cfg, plan.collect_stats)
     elif mode in ("sparse", "quantized_sparse"):
         if layout not in ("flat", "leaf"):
             raise ValueError(layout)
         if layout == "leaf":
-            if plan.collect_stats:
-                raise ValueError("collect_stats is not supported on the leaf "
-                                 "sync path (local flat topk/fused and dense "
-                                 "only)")
+            _no_stats(plan, "leaf")
             sync = _make_leaf_sync(hfl_cfg)
         else:
-            if hfl_cfg.flat_shards > 1:
-                raise NotImplementedError("flat_shards > 1 is not ported yet: "
-                                          "ROADMAP Queue 1 item 16")
             if hfl_cfg.omega_impl not in ("topk", "hist", "pallas", "fused"):
                 raise ValueError(hfl_cfg.omega_impl)
-            sync = _make_flat_sync(hfl_cfg, plan.collect_stats)
+            if hfl_cfg.flat_shards > 1:
+                if hfl_cfg.omega_impl != "fused":
+                    raise ValueError(
+                        "flat_shards > 1 requires omega_impl='fused' (the "
+                        "sharded flat sync is built on the fused per-shard "
+                        "compaction)")
+                _no_stats(plan, "sharded flat")
+                sync = _make_flat_sharded_sync(hfl_cfg, hfl_cfg.flat_shards)
+            else:
+                sync = _make_flat_sync(hfl_cfg, plan.collect_stats)
     else:
         raise ValueError(mode)
     sync.collect_stats = plan.collect_stats

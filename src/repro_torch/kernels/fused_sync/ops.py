@@ -34,6 +34,7 @@ _BINS = 128
 _SAMPLE = 16384
 _MARGIN = 2
 _PIPELINE_MIN_FRAC = 1 / 24
+_CHUNK = 1 << 24  # output slots gathered per step of the sharded compaction
 
 
 def candidate_capacity(n: int, k: int) -> int:
@@ -177,3 +178,113 @@ def fused_pack_phi(x, phi: float, *, interpret=None, **kw):
     k = keep_count(flat.numel(), phi)
     vals, idx = select_topk_rows(flat[None, :], k, interpret=interpret, **kw)
     return vals[0], idx[0]
+
+
+# ---------------------------------------------------------------------------
+# Sharded stage 1 + merge (the flat vector sharded over ("data", "model"))
+# ---------------------------------------------------------------------------
+
+
+def shard_capacity(n_local: int, k: int, num_shards: int) -> int:
+    """Static per-shard candidate capacity for a k-of-(num_shards·n_local)
+    selection: the shard's share of k plus binomial spread, sampling noise
+    and near-threshold headroom."""
+    k_s = -(-k // num_shards)
+    spread = int(5 * np.sqrt(max(k_s, 1))) + k_s // 2
+    return int(min(n_local, k_s + spread + max(n_local // 24, 128) + 1024))
+
+
+def _compact_kernel_prefix(S, th, cap: int):
+    """The plain compaction's answer (the first ``cap`` candidates of each
+    row in index order, pads (0, n), the true counts) through
+    ``block_select``.
+
+    A first launch at the tile capacity gives every tile's true count. A
+    tile needs clamp(cap - candidates before it, 0, its count) of its
+    candidates; where that exceeds its slots, the row is compacted again
+    with as many slots per tile as the most any tile needs (at most
+    ``BLOCK_ELEMS``). Each tile's first ``need`` slots then land at their
+    offsets in the output. -> (vals, idx, m, second) with ``second`` the
+    number of rows that took the second launch."""
+    R, n = S.shape
+    cap_blk = tile_capacity(n, cap)
+    vals = torch.zeros((R, cap), dtype=torch.float32, device=S.device)
+    idx = torch.full((R, cap), n, dtype=torch.int32, device=S.device)
+    m = torch.zeros((R,), dtype=torch.int64, device=S.device)
+    second = 0
+    for r in range(R):
+        v, i, c = K.block_select(S[r], th[r:r + 1], cap_blk, n)
+        c = c[:, 0].long()
+        before = torch.cumsum(c, 0) - c  # candidates in earlier tiles
+        need = (cap - before).clamp_min(0).minimum(c)
+        most, total = (int(x) for x in torch.stack([need.max(), need.sum()]))
+        if most > cap_blk:
+            second += 1
+            del v, i
+            v, i, _ = K.block_select(S[r], th[r:r + 1], most, n)
+        m[r] = c.sum()
+        # output slot j comes from tile t = the tile whose need covers j,
+        # slot j - before[t]; in chunks, so no [tiles, slots] index exists
+        ends = torch.cumsum(need, 0)
+        v, i = v.reshape(-1), i.reshape(-1)
+        for a in range(0, total, _CHUNK):
+            j = torch.arange(a, min(a + _CHUNK, total), device=S.device)
+            t = torch.searchsorted(ends, j, right=True)
+            src = t * (v.numel() // c.numel()) + (j - before[t])
+            vals[r, j] = v[src]
+            idx[r, j] = i[src]
+        del v, i
+    return vals, idx, m, second
+
+
+def shard_select_candidates(S_loc, k: int, num_shards: int, *, bins: int = _BINS,
+                            sample: int = _SAMPLE, margin: int = _MARGIN,
+                            interpret=None):
+    """Per-shard stage 1 of the sharded whole-vector Ω: ``S_loc`` [R,
+    n_local] is this shard's piece of the flat vector(s) -> (vals [R,
+    cap_s], LOCAL idx [R, cap_s] int32 with ``n_local`` as the pad slot,
+    m [R] int32 true counts, th [R]), the fixed-size payload that rides
+    one all-gather.
+
+    ``interpret`` as ``select_topk_rows``: None follows the device (CPU ->
+    the plain compaction, CUDA -> ``block_select``); False on a CPU tensor
+    drives the ``block_select`` pipeline through the kernel's plain
+    version. ``shard_select_candidates.second_launches`` counts the rows
+    that needed ``block_select``'s second launch."""
+    R, n_loc = S_loc.shape
+    S_loc = S_loc.float()
+    if interpret is None:
+        interpret = S_loc.device.type == "cpu"
+    if interpret and S_loc.device.type != "cpu":
+        raise ValueError("shard_select_candidates: the interpret branch is "
+                         "the CPU path; CUDA tensors run block_select")
+    cap_s = shard_capacity(n_loc, k, num_shards)
+    k_s = -(-k // num_shards)
+    th = _row_threshold(S_loc, min(k_s + k_s // 16, n_loc), bins=bins,
+                        sample=sample, margin=margin)
+    if interpret:
+        vals, idx, m, _ = _compact_plain(S_loc, th, cap_s)
+    else:
+        vals, idx, m, second = _compact_kernel_prefix(S_loc, th, cap_s)
+        shard_select_candidates.second_launches += second
+    return vals, idx, m.to(torch.int32), th
+
+
+shard_select_candidates.second_launches = 0
+
+
+def merge_shard_candidates(cand_vals, cand_idx, m, th, k: int):
+    """The final payload from every shard's candidates: ``cand_vals`` /
+    ``cand_idx`` [R, S·cap_s] shard-major with GLOBAL indices, ``m`` /
+    ``th`` [R, S] -> (vals [R, k], idx [R, k], exact [R] bool).
+
+    ``exact`` certifies the answer is the unsharded top-k: no shard had
+    more candidates than its capacity, the union holds >= k and every
+    shard's threshold is at or below the merged k-th magnitude. It is
+    advisory: the merged top-k of the union is returned either way."""
+    vals, idx = _finish_topk(cand_vals, cand_idx, k)
+    th_k = vals[:, -1].abs()
+    cap_s = cand_vals.shape[1] // m.shape[1]
+    exact = ((m <= cap_s).all(dim=1) & (m.long().sum(dim=1) >= k)
+             & (th <= th_k[:, None]).all(dim=1))
+    return vals, idx, exact

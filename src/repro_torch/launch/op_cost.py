@@ -21,7 +21,9 @@ count means kept as close to ``hlo_cost``'s as eager PyTorch allows:
   * ``launches``: on the card, the kernels ``torch.profiler`` sees run on
     the device (copies and fills excluded); on the CPU, the dispatched
     ops that do work.
-  * ``collective_bytes``: 0.0 (one process; the mesh path is not ported).
+  * ``collective_bytes``: 0.0 (the train CLI's steps run in one process;
+    counting the mesh syncs' collectives comes with the dry-run and its
+    cost readers, ROADMAP Queue 1 item 16 part 2).
 
 Wrapping a call in these observers changes nothing it computes, so the
 train CLI (``--obs-hlo-cost``) counts the first real ``train_step`` and

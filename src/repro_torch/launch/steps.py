@@ -1,10 +1,11 @@
-"""Step builders: the LM loss and the serve (prefill/decode) steps, the
-port of ``repro.launch.steps`` (its dry-run input specs wait for ROADMAP
-Queue 1 item 16)."""
+"""Step builders: the LM loss, the mesh sync and the serve
+(prefill/decode) steps, the port of ``repro.launch.steps`` (its dry-run
+input specs wait for ROADMAP Queue 1 item 16 part 2)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.hfl import SyncPlan, make_sync
 from repro_torch.models.transformer import decode_step, forward, prefill
 
 
@@ -40,6 +41,13 @@ def make_loss_fn(cfg, groups: int = 1):
         return loss, aux
 
     return loss_fn
+
+
+def build_sync_step(hfl_cfg, mesh, pspecs):
+    """The consensus step on ``mesh`` with ``pspecs`` (``core.hfl.
+    make_sync``): each rank calls it on its rank-local state
+    (``core.hfl.rank_state``), which it updates in place."""
+    return make_sync(SyncPlan(hfl_cfg, mesh=mesh, param_specs=pspecs))
 
 
 def build_prefill_step(cfg, groups: int = 1):

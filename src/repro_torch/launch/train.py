@@ -62,8 +62,11 @@ of the first train step and the first sync step as they run
       --scenario paper-fig3 --steps 4 --tiers 3x2:H=2 --batch-per-mu 1 \
       --seq 16 --obs-health --trace-viz trace.json --metrics-out run.jsonl
 
-``--flat-shards`` > 1 and checkpoints are not ported yet and raise, naming
-their ROADMAP item. ``--layers N`` keeps the first N layers of the
+``--flat-shards S`` with ``--omega-impl fused`` runs the sharded flat
+sync: the padded flat vector as S contiguous pieces, one candidate
+compaction per piece and a merge (the single-process form of the mesh
+path, ``core.hfl.make_sync`` on a ``launch.mesh`` mesh). Checkpoints are
+not ported yet and raise, naming their ROADMAP item. ``--layers N`` keeps the first N layers of the
 architecture (full width with ``--full``), so a configuration's state fits
 a card.
 """

@@ -69,5 +69,8 @@ def test_flat_backed_trees_are_found_again(trees):
     tree_leaves(tree2)[0][1].fill_(2.0)  # a leaf write lands in the buffer
     assert float(flat2[1, spec.leaf_slice(0)].sum()) == 2.0 * spec.sizes[0]
     assert tfl.backing(port, spec) is None  # separately allocated leaves
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfl.pack(port, shards=2)
+    # the padded layout (shards > 1) is ported: its buffers are found too
+    spec3 = tfl.spec_of(port, shards=3)
+    flat3, tree3 = tfl.flat_backed_zeros(spec3, 2, torch.float32, "cpu")
+    assert flat3.shape == (2, spec3.padded_total)
+    assert tfl.backing(tree3, spec3, rows=2) is flat3

@@ -159,10 +159,12 @@ def test_unported_flags_raise():
 
     with pytest.raises(SystemExit, match="not ported.*item 17"):
         train.run(train.parse_args(["--ckpt-dir", "ckpt", "--device", "cpu"]))
-    # a sync the port does not build yet names its ROADMAP item
-    with pytest.raises(NotImplementedError, match="not ported yet: ROADMAP"):
-        train.run(train.parse_args(["--flat-shards", "2", "--omega-impl", "fused",
-                                    "--device", "cpu"]))
+    # the sharded flat vector is ported: a short run completes
+    out = train.run(train.parse_args(["--flat-shards", "2", "--omega-impl", "fused",
+                                      "--device", "cpu", "--steps", "2",
+                                      "--tiers", "2x1:H=2", "--batch-per-mu", "1",
+                                      "--seq", "8"]))
+    assert len(out["hist"]) == 2 and len(out["sync_s"]) == 1
 
 
 def test_package_surfaces_match_the_reference():

@@ -150,6 +150,13 @@ def test_hfl_init_matches_reference():
 
 
 def test_unported_plans_raise_with_their_roadmap_item():
-    cfg = THFLConfig(tiers=_tiers(2), flat_shards=2, omega_impl="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
+    """flat_shards > 1 is ported: with topk it raises the reference's
+    ValueError (tests/test_fused.py), with fused it builds."""
+    cfg = THFLConfig(tiers=_tiers(2), flat_shards=2, omega_impl="topk")
+    with pytest.raises(ValueError, match="flat_shards > 1 requires omega_impl='fused'"):
         thfl.make_sync(thfl.SyncPlan(cfg))
+    hfl = JHFLConfig(tiers=_tiers(2), flat_shards=2, omega_impl="topk")
+    with pytest.raises(ValueError, match="flat_shards > 1 requires omega_impl='fused'"):
+        jhfl.make_sync(jhfl.SyncPlan.from_config(hfl))
+    cfg = THFLConfig(tiers=_tiers(2), flat_shards=2, omega_impl="fused")
+    assert callable(thfl.make_sync(thfl.SyncPlan(cfg)))
