@@ -192,7 +192,24 @@ nonzero):
      narrow size card = CPU bit for bit. NCCL across cards waits for a
      machine with four cards;
  11. one JSON line listing every ported kernel with its launches on each
-     path (and their sum), error, times and bound.
+     path (and their sum), error, times and bound; it comes last, after
+ 12. checkpoints and the dry-run (``checkpoint_and_dryrun``): (b) the
+     dry-run of olmo-1b x train_4k on both production meshes (``meta``
+     tensors over a fake process group: nothing allocated), and its
+     argument bytes of (a)'s state on a one-rank mesh against the growth of
+     ``torch.cuda.memory_allocated`` across ``hfl_init`` on the card,
+     within 512 B a leaf; (a) the train CLI with ``--ckpt-dir`` at full
+     olmo-1b width and ``CKPT_LAYERS`` layers, ``2x2:H=2``, 4 steps, with
+     ``fused``, ``pallas`` and ``fused --flat-shards 4``: the file (~12 GB)
+     restored into a fresh card state (every leaf bit for bit, written in
+     place into the flat buffers the sync finds), its sha256 equal to the
+     CPU encoder's on a host copy of the saved state, and one more period
+     (2 steps and a sync) from the saved and from the restored state with
+     equal fingerprints and the impl's launches (``block_select``, or
+     ``update_max`` and ``tail_hist``); it prints the file's GB, write and
+     read seconds and GB/s, the free disk (it fails when the file cannot
+     fit) and the host's resident set during the write, the read and the
+     CPU encoding.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
 result. ``--profile DIR`` runs phases 4 and 5 under ``torch.profiler`` and
@@ -1197,6 +1214,306 @@ def sharded_paths(torch, counters, by_path, smi):
           "ranks_s": time.perf_counter() - t0})
     emit({"phase": "sharded_paths_done", "seconds": time.perf_counter() - t10})
     free(torch)
+
+
+# ---- phase 12: checkpoints and the dry-run --------------------------------
+CKPT_LAYERS = 4  # 12a's depth cut: ~12 GB a file at 2x2 (Q ~ 371M)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+CKPT_RUNS = (("fused", 1), ("pallas", 1), ("fused", SHARDS))
+# the file's sha256 against the CPU encoder: once, on the padded layout (the
+# encoder is the same code for every run; the states differ only in values)
+CKPT_SHA_RUN = ("fused", SHARDS)
+
+
+class _Sha256Sink:
+    """A binary file object that only hashes what is written to it."""
+
+    def __init__(self):
+        import hashlib
+
+        self.h = hashlib.sha256()
+
+    def write(self, b):
+        self.h.update(b)
+        return len(b)
+
+
+def file_sha256(path):
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 26):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def compare_file_with_cpu_encoder(path, saved):
+    """The file's sha256 (in a thread: hashlib lets go of the GIL) against
+    the CPU encoder's on a host copy of the saved state; raises when they
+    differ -> the record of the comparison."""
+    import threading
+
+    from repro_torch.checkpoint import msgpack_ckpt as ck
+    from repro_torch.utils.tree import tree_map
+
+    hashed = {}
+    t0 = time.perf_counter()
+    hasher = threading.Thread(target=lambda: hashed.update(
+        sha=file_sha256(path), seconds=time.perf_counter() - t0))
+    hasher.start()
+    with HostRss() as rss:
+        host = tree_map(lambda t: t.cpu(), tensors_of(saved))
+        host["step"] = saved.step
+        sink = _Sha256Sink()
+        t1 = time.perf_counter()
+        ck.write_payload(sink, host)
+        encode_s = time.perf_counter() - t1
+        del host
+    hasher.join()
+    if hashed["sha"] != sink.h.hexdigest():
+        raise AssertionError(f"checkpoint {path.name}: the card's file and the CPU "
+                             "encoder differ")
+    return {"sha256": hashed["sha"], "sha256_cpu_encoder": sink.h.hexdigest(),
+            "sha256_file_s": hashed["seconds"], "cpu_encode_s": encode_s,
+            "host_rss_cpu_copy_and_encode": rss.report()}
+
+
+def tensors_of(state):
+    """An HFLState's fields but its int ``step``, as one dict tree."""
+    return {k: v for k, v in state._asdict().items() if k != "step"}
+
+
+def _rss_bytes():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class HostRss:
+    """The process's resident set sampled every 5 ms while the block runs:
+    ``start_gb`` and ``peak_gb`` (the process's lifetime peak would hold
+    the earlier phases' host copies)."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _poll(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())
+        return False
+
+    def report(self):
+        return {"start_gb": self.start / 1e9, "peak_gb": self.peak / 1e9}
+
+
+def checkpoint_and_dryrun(torch, counters, by_path, smi):
+    """Phase 12. (a) the train CLI with ``--ckpt-dir`` at full olmo-1b width
+    and ``CKPT_LAYERS`` layers, ``fused``, ``pallas`` and ``fused
+    --flat-shards 4``: the file restored into a fresh card state (every
+    leaf bit for bit, the flat buffers still the sync's), one more period
+    from the saved and from the restored state (equal fingerprints; the
+    kernels' launches counted), and on the ``--flat-shards 4`` run the
+    file's sha256 equal to the CPU encoder's on a host copy of the state;
+    write / read seconds, GB/s, the
+    free disk and the host's peak RSS. (b) ``dryrun_pair`` of olmo-1b x
+    train_4k on both production meshes, on ``meta``; the dry-run's
+    argument bytes of 12a's state on a one-rank mesh against the growth of
+    ``torch.cuda.memory_allocated`` across ``hfl_init`` on the card."""
+    import shutil
+
+    from repro_torch.checkpoint import msgpack_ckpt as ck
+    from repro_torch.configs import get_shape
+    from repro_torch.core import hfl as H
+    from repro_torch.kernels.fused_sync import ops as fops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as st
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import SGDM
+    from repro_torch.utils import flatten as fl
+    from repro_torch.utils.tree import jax_leaves, tree_leaves
+
+    dev = torch.device("cuda")
+    t12 = time.perf_counter()
+    cfg = olmo_config(layers=CKPT_LAYERS)
+    N = N_CLUSTERS
+
+    # 12b first (nothing on the card): the dry-run on both production meshes
+    for multi in (False, True):
+        rec = D.dryrun_pair("olmo-1b", "train_4k", multi_pod=multi, verbose=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun: {rec}")
+        emit({"phase": "dryrun", **rec})
+    hfl = sharded_hfl("fused")
+    with D.fake_world(1):
+        mesh = M.make_host_mesh(data=1, model=1, device_type="cpu")
+        state_sds = st.train_input_specs(cfg, get_shape("train_4k"), mesh, hfl)[0]
+    arg_bytes, n_leaves = D.argument_bytes((state_sds,)), len(jax_leaves(state_sds))
+    file_bytes = arg_bytes + sum(  # bf16 leaves are written as f32, + headers
+        l.block_nbytes for l in jax_leaves(state_sds.params)) + 64 * n_leaves + 64
+    free(torch)
+    params = init_model(torch.Generator(device=dev).manual_seed(5), cfg, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = H.hfl_init(params, SGDM(momentum=0.9, weight_decay=1e-4), hfl)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - before
+    emit({"phase": "dryrun_vs_card", "arch": cfg.name, "layers": CKPT_LAYERS,
+          "tiers": MAIN_ARGV[2], "argument_bytes": arg_bytes, "leaves": n_leaves,
+          "hfl_init_allocated_bytes": growth, "difference": growth - arg_bytes,
+          "allowed": 512 * n_leaves})
+    if abs(growth - arg_bytes) > 512 * n_leaves:
+        raise AssertionError(f"dryrun: argument bytes {arg_bytes} against "
+                             f"{growth} allocated by hfl_init")
+    del state, params
+    free(torch)
+
+    # 12a. checkpoints through the train CLI
+    resume_kernels = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
+    for impl, shards in CKPT_RUNS:
+        name = impl + (f"-shards{shards}" if shards > 1 else "")
+        d = CKPT_DIR / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        disk_free = shutil.disk_usage(d).free
+        if disk_free < 1.05 * file_bytes:
+            raise AssertionError(f"checkpoint {name}: the file needs "
+                                 f"{file_bytes / 1e9:.1f} GB, the disk has "
+                                 f"{disk_free / 1e9:.1f} GB free")
+        grab = {}
+        real_save = train.save_checkpoint
+
+        def timed_save(path, step, tree, keep=3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with HostRss() as rss:
+                out = real_save(path, step, tree, keep)
+            grab["write_s"] = time.perf_counter() - t0
+            grab["write_rss"] = rss.report()
+            grab["tree"] = tree
+            return out
+
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        second0 = fops.shard_select_candidates.second_launches
+        args = train.parse_args(MAIN_ARGV + [
+            "--layers", str(CKPT_LAYERS), "--omega-impl", impl,
+            "--flat-shards", str(shards), "--ckpt-dir", str(d)])
+        train.save_checkpoint = timed_save
+        try:
+            out = train.run(args)
+        finally:
+            train.save_checkpoint = real_save
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        second = fops.shard_select_candidates.second_launches - second0
+        by_path[f"ckpt olmo-1b {CKPT_LAYERS} layers {name}"] = launches
+        per_sync = {k: (shards * (N + 1) if shards > 1 else N + 1)
+                    for k in resume_kernels[impl]}
+        for k, n in per_sync.items():
+            want = n * (STEPS // PERIOD) + (second if k == "block_select" else 0)
+            if launches[k] != want:
+                raise AssertionError(f"checkpoint {name}: {k} launched "
+                                     f"{launches[k]} times, want {want}")
+        if not (math.isfinite(out["eval_loss"]) and all(map(math.isfinite, out["hist"]))):
+            raise AssertionError(f"checkpoint {name}: non-finite loss")
+        path = d / f"ckpt_{STEPS:08d}.msgpack"
+        size = path.stat().st_size
+        saved = H.HFLState(**grab.pop("tree"))
+
+        # restore into a fresh card state: every leaf bit for bit, in place
+        fresh = H.hfl_init(init_model(torch.Generator(device=dev).manual_seed(6), cfg,
+                                      device=dev),
+                           SGDM(momentum=0.9, weight_decay=1e-4),
+                           sharded_hfl(impl, shards=shards))
+        spec = fl.spec_of(fresh.w_ref, shards=shards)
+        bufs = [fl.backing(fresh.w_ref, spec), fl.backing(fresh.e, spec),
+                fl.backing(fresh.eps, spec, rows=N)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with HostRss() as read_rss:
+            tree, step = ck.restore_checkpoint(str(d), fresh._asdict())
+            torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        restored = H.HFLState(**tree)
+        leaves_equal = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(tensors_of(restored)), tree_leaves(tensors_of(saved)),
+            strict=True)) and restored.step == saved.step == step == STEPS
+        again = [fl.backing(restored.w_ref, spec), fl.backing(restored.e, spec),
+                 fl.backing(restored.eps, spec, rows=N)]
+        backed = all(a is not None and b is not None and a.data_ptr() == b.data_ptr()
+                     for a, b in zip(bufs, again))
+        if not (leaves_equal and backed):
+            raise AssertionError(f"checkpoint {name}: restored leaves equal "
+                                 f"{leaves_equal}, flat buffers kept {backed}")
+
+        sha = None
+        if (impl, shards) == CKPT_SHA_RUN:
+            sha = compare_file_with_cpu_encoder(path, saved)
+
+        # one more period from the saved and from the restored state
+        hcfg = sharded_hfl(impl, shards=shards)
+        step_fn = H.make_cluster_train_step(
+            st.make_loss_fn(cfg), SGDM(momentum=0.9, weight_decay=1e-4),
+            lambda t: 0.01)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        batches = [{"tokens": torch.randint(0, cfg.vocab_size, (N, 8, 128), generator=gen,
+                                            device=dev)} for _ in range(PERIOD)]
+        for fn in counters.values():
+            fn.launches = 0
+        second0 = fops.shard_select_candidates.second_launches
+        prints = []
+        for s0 in (saved, restored):
+            sync = H.make_sync(H.SyncPlan(hcfg))
+            for b in batches:
+                s0, _ = step_fn(s0, b)
+            s0 = sync(s0)
+            torch.cuda.synchronize()
+            prints.append([fingerprint(torch, l) for l in tree_leaves(tensors_of(s0))])
+        resume = {k: fn.launches for k, fn in counters.items()}
+        resume_second = fops.shard_select_candidates.second_launches - second0
+        by_path[f"ckpt olmo-1b {CKPT_LAYERS} layers {name} resume x2"] = resume
+        for k, n in per_sync.items():
+            want = 2 * n + (resume_second if k == "block_select" else 0)
+            if resume[k] != want:
+                raise AssertionError(f"checkpoint {name}: resume {k} launched "
+                                     f"{resume[k]} times, want {want}")
+        if prints[0] != prints[1]:
+            raise AssertionError(f"checkpoint {name}: the restored state's next "
+                                 "period differs from the unsaved state's")
+        del restored, fresh, tree, bufs, again
+        emit({"phase": "checkpoint", "run": name, "arch": cfg.name, "layers": CKPT_LAYERS,
+              "tiers": MAIN_ARGV[2], "impl": impl, "flat_shards": shards,
+              "file_gb": size / 1e9, "predicted_file_gb": file_bytes / 1e9,
+              "write_s": grab["write_s"], "write_gb_per_s": size / 1e9 / grab["write_s"],
+              "read_s": read_s, "read_gb_per_s": size / 1e9 / read_s,
+              "disk_free_gb_before": disk_free / 1e9,
+              "host_rss_write": grab["write_rss"], "host_rss_read": read_rss.report(),
+              "sha256_vs_cpu_encoder": sha,
+              "launches": launches, "resume_launches": resume,
+              "second_block_select_launches": [second, resume_second],
+              "restored_leaves_equal": leaves_equal, "flat_buffers_kept": backed,
+              "resume_fingerprints_equal": True, "losses": out["hist"],
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "card": smi})
+        del saved, out
+        free(torch)
+        shutil.rmtree(d)
+    emit({"phase": "checkpoint_and_dryrun_done", "seconds": time.perf_counter() - t12})
 
 
 def main(argv):
@@ -2598,6 +2915,9 @@ def main(argv):
 
     # ---- 10. the sharded flat vector and the mesh syncs ---------------------
     sharded_paths(torch, counters, by_path, smi)
+
+    # ---- 12. checkpoints and the dry-run (before the summary, which is last)
+    checkpoint_and_dryrun(torch, counters, by_path, smi)
 
     # ---- 11. kernel summary -------------------------------------------------
     meta = {

@@ -1,6 +1,7 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``."""
 from repro_torch.configs.base import (  # noqa: F401
-    HFLConfig, ModelConfig, SimConfig, TierConfig, parse_tiers_spec,
+    INPUT_SHAPES, HFLConfig, ModelConfig, ShapeConfig, SimConfig, TierConfig,
+    parse_tiers_spec,
 )
 from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
 from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek
@@ -26,3 +27,9 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; choose from {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in INPUT_SHAPES:
+        raise KeyError(f"unknown shape {name!r}; choose from {sorted(INPUT_SHAPES)}")
+    return INPUT_SHAPES[name]

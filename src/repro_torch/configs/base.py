@@ -1,14 +1,16 @@
 """Config schema: the port's copy of ``repro.configs.base``.
 
-``ModelConfig`` (with ``reduced()``), ``TierConfig``, ``HFLConfig`` (the
-per-tier ``tiers`` API), ``parse_tiers_spec`` and ``SimConfig``, field for
-field. The legacy scalar ``HFLConfig`` keywords and read shims are not
-carried over.
+``ModelConfig`` (with ``reduced()``), ``ShapeConfig`` and ``INPUT_SHAPES``,
+``TierConfig``, ``HFLConfig`` (the per-tier ``tiers`` API, with the legacy
+scalar keywords and their deprecated read shims), ``parse_tiers_spec``,
+``warn_legacy_cli_flag`` and ``SimConfig``, field for field and with the
+reference's warning texts.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -74,6 +76,13 @@ class ModelConfig:
             return self.d_model // self.num_heads
         return 0
 
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for the long_500k shape (SSM / hybrid / sliding-window)."""
+        if self.arch_type in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant of the same family (<=2 layers, d_model<=512)."""
         d_model = min(self.d_model, 256)
@@ -111,6 +120,27 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the dry-run's)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class TierConfig:
     """One aggregation stage of the hierarchy, bottom-up (see
@@ -138,6 +168,49 @@ class TierConfig:
             raise ValueError(f"unknown tier discipline {self.discipline!r}")
 
 
+# legacy scalar HFLConfig fields -> their depth-2 tier slot; both the
+# constructor shim and the deprecated read-properties are driven off this
+_LEGACY_HFL_FIELDS = (
+    "num_clusters", "mus_per_cluster", "period",
+    "phi_mu_ul", "phi_sbs_dl", "phi_sbs_ul", "phi_mbs_dl",
+    "beta_s", "beta_m",
+)
+
+# warn-once-per-process registry for the deprecated field reads and CLI flags
+_legacy_hfl_warned: set = set()
+
+
+def _warn_legacy_hfl_field(name: str, hint: str) -> None:
+    if name in _legacy_hfl_warned:
+        return
+    _legacy_hfl_warned.add(name)
+    warnings.warn(
+        f"HFLConfig.{name} is deprecated; {hint} (the scalar two-level "
+        "fields were replaced by the per-tier HFLConfig.tiers tuple)",
+        DeprecationWarning, stacklevel=3,
+    )
+
+
+def _reset_legacy_hfl_warnings() -> None:
+    """Test hook: re-arm the once-per-process deprecation warnings."""
+    _legacy_hfl_warned.clear()
+
+
+def warn_legacy_cli_flag(flag: str, replacement: str) -> None:
+    """Once-per-process deprecation for the old CLI surface
+    (``--clusters/--mus/--period`` -> ``--tiers``); shares the warned-set
+    (and the test reset hook) with the field shims."""
+    key = f"cli:{flag}"
+    if key in _legacy_hfl_warned:
+        return
+    _legacy_hfl_warned.add(key)
+    warnings.warn(
+        f"{flag} is deprecated; use {replacement} instead",
+        DeprecationWarning, stacklevel=3,
+    )
+
+
+# the old HFLConfig() defaults, expressed as the depth-2 tier tuple
 DEFAULT_TIERS = (
     TierConfig(fanout=4, period=1, phi_up=0.99, phi_down=0.9),
     TierConfig(fanout=1, period=4, phi_up=0.9, phi_down=0.9,
@@ -200,7 +273,11 @@ class HFLConfig:
     """Hierarchical FL + sparse communication parameters (paper §III-IV).
 
     The same fields and defaults as ``repro.configs.base.HFLConfig``;
-    ``tiers`` accepts ``TierConfig``s, dicts or tuples.
+    ``tiers`` accepts ``TierConfig``s, dicts or tuples. The legacy scalar
+    constructor keywords (``num_clusters``, ``mus_per_cluster``,
+    ``period``, ``phi_*``, ``beta_*``) reshape the depth-2 tuple; reading
+    them back warns once per process (``DeprecationWarning``) and is only
+    defined while the hierarchy is depth 2.
     """
 
     tiers: Tuple[TierConfig, ...] = DEFAULT_TIERS
@@ -214,16 +291,58 @@ class HFLConfig:
     codec: str = "delta-varint"
     async_dl_sparse: bool = False
 
-    def __post_init__(self):
+    def __init__(self, tiers=None, momentum: float = 0.9,
+                 sync_mode: str = "sparse", omega_impl: str = "topk",
+                 sync_layout: str = "flat", flat_shards: int = 1,
+                 wire_format: str = "bf16",
+                 payload_accounting: str = "analytic",
+                 codec: str = "delta-varint", async_dl_sparse: bool = False,
+                 **legacy):
+        # dataclasses.replace() funnels unknown keys here too, so
+        # replace(cfg, period=2) goes through the legacy shim
+        unknown = set(legacy) - set(_LEGACY_HFL_FIELDS)
+        if unknown:
+            raise TypeError(
+                f"HFLConfig got unexpected keyword(s) {sorted(unknown)}")
+        if tiers is None:
+            tiers = DEFAULT_TIERS
         tiers = tuple(
             t if isinstance(t, TierConfig)
             else TierConfig(**t) if isinstance(t, dict)
             else TierConfig(*t)
-            for t in self.tiers)
+            for t in tiers)
         if len(tiers) < 2:
             raise ValueError("HFLConfig.tiers needs >= 2 stages "
                              "(MU tier + at least one aggregation tier)")
-        object.__setattr__(self, "tiers", tiers)
+        if legacy:
+            if len(tiers) != 2:
+                raise ValueError(
+                    f"legacy two-level keyword(s) {sorted(legacy)} are "
+                    f"ambiguous on a depth-{len(tiers)} hierarchy; set "
+                    "HFLConfig.tiers explicitly instead")
+            t0, t1 = tiers
+            t0 = dataclasses.replace(
+                t0,
+                fanout=legacy.get("mus_per_cluster", t0.fanout),
+                phi_up=legacy.get("phi_mu_ul", t0.phi_up),
+                phi_down=legacy.get("phi_sbs_dl", t0.phi_down))
+            t1 = dataclasses.replace(
+                t1,
+                fanout=legacy.get("num_clusters", t1.fanout),
+                period=legacy.get("period", t1.period),
+                phi_up=legacy.get("phi_sbs_ul", t1.phi_up),
+                phi_down=legacy.get("phi_mbs_dl", t1.phi_down),
+                beta_up=legacy.get("beta_s", t1.beta_up),
+                beta_down=legacy.get("beta_m", t1.beta_down))
+            tiers = (t0, t1)
+        for name, value in (
+                ("tiers", tiers), ("momentum", momentum),
+                ("sync_mode", sync_mode), ("omega_impl", omega_impl),
+                ("sync_layout", sync_layout), ("flat_shards", flat_shards),
+                ("wire_format", wire_format),
+                ("payload_accounting", payload_accounting), ("codec", codec),
+                ("async_dl_sparse", async_dl_sparse)):
+            object.__setattr__(self, name, value)
 
     @property
     def depth(self) -> int:
@@ -243,6 +362,57 @@ class HFLConfig:
     @property
     def total_mus(self) -> int:
         return math.prod(t.fanout for t in self.tiers)
+
+    # --- deprecated scalar reads (warn once per process, depth-2 only) ---
+
+    def _two_level(self) -> Tuple[TierConfig, TierConfig]:
+        if len(self.tiers) != 2:
+            raise AttributeError(
+                "legacy two-level HFLConfig fields are undefined for a "
+                f"depth-{len(self.tiers)} hierarchy; read cfg.tiers")
+        return self.tiers  # type: ignore[return-value]
+
+    @property
+    def period(self) -> int:
+        tiers = self._two_level()
+        _warn_legacy_hfl_field("period", "read cfg.tiers[-1].period")
+        return tiers[1].period
+
+    @property
+    def phi_mu_ul(self) -> float:
+        tiers = self._two_level()
+        _warn_legacy_hfl_field("phi_mu_ul", "read cfg.tiers[0].phi_up")
+        return tiers[0].phi_up
+
+    @property
+    def phi_sbs_dl(self) -> float:
+        tiers = self._two_level()
+        _warn_legacy_hfl_field("phi_sbs_dl", "read cfg.tiers[0].phi_down")
+        return tiers[0].phi_down
+
+    @property
+    def phi_sbs_ul(self) -> float:
+        tiers = self._two_level()
+        _warn_legacy_hfl_field("phi_sbs_ul", "read cfg.tiers[1].phi_up")
+        return tiers[1].phi_up
+
+    @property
+    def phi_mbs_dl(self) -> float:
+        tiers = self._two_level()
+        _warn_legacy_hfl_field("phi_mbs_dl", "read cfg.tiers[1].phi_down")
+        return tiers[1].phi_down
+
+    @property
+    def beta_s(self) -> float:
+        tiers = self._two_level()
+        _warn_legacy_hfl_field("beta_s", "read cfg.tiers[1].beta_up")
+        return tiers[1].beta_up
+
+    @property
+    def beta_m(self) -> float:
+        tiers = self._two_level()
+        _warn_legacy_hfl_field("beta_m", "read cfg.tiers[1].beta_down")
+        return tiers[1].beta_down
 
 
 # ---------------------------------------------------------------------------

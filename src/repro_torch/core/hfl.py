@@ -33,6 +33,7 @@ sync from the same state is bitwise equal on the CPU. Callers rebind
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -1327,6 +1328,33 @@ class SyncPlan:
     param_specs: Any = None
     layout: Optional[str] = None
     collect_stats: bool = False
+
+    @classmethod
+    def from_config(cls, hfl_cfg, *, mesh=None, param_specs=None,
+                    layout=None, collect_stats: bool = False) -> "SyncPlan":
+        return cls(hfl=hfl_cfg, mesh=mesh, param_specs=param_specs,
+                   layout=layout, collect_stats=collect_stats)
+
+
+_make_sync_step_warned = False
+
+
+def make_sync_step(hfl_cfg, mesh=None, param_specs=None, *, layout=None,
+                   collect_stats: bool = False):
+    """Deprecated keyword-surface wrapper: build a :class:`SyncPlan` and
+    call :func:`make_sync` instead. Warns once per process; behaviour is
+    unchanged (the plan carries exactly these arguments)."""
+    global _make_sync_step_warned
+    if not _make_sync_step_warned:
+        _make_sync_step_warned = True
+        warnings.warn(
+            "make_sync_step(hfl_cfg, mesh=..., param_specs=..., "
+            "layout=..., collect_stats=...) is deprecated; build a "
+            "SyncPlan (SyncPlan.from_config) and call make_sync(plan)",
+            DeprecationWarning, stacklevel=2)
+    return make_sync(SyncPlan(hfl=hfl_cfg, mesh=mesh,
+                              param_specs=param_specs, layout=layout,
+                              collect_stats=collect_stats))
 
 
 def make_sync(plan: SyncPlan):

@@ -81,6 +81,8 @@ def stable_topk_positions(x, k: int):
     equal magnitudes in index order: the first k of a stable descending
     argsort of |x|, i.e. ``lax.top_k``'s answer."""
     k = min(k, x.numel())
+    if x.device.type == "meta":  # no values to rank: the positions' shape
+        return torch.empty((k,), dtype=torch.int64, device=x.device)
     keys = _abs_keys(x.reshape(-1))
     nnz = int(torch.count_nonzero(keys))
     if nnz <= k:  # all nonzeros are in, then the first zeros: t = 0

@@ -1,0 +1,1 @@
+from repro_torch.kernels.dgc import ops, ref  # noqa: F401

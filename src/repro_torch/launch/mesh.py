@@ -100,6 +100,11 @@ def mesh_coord(mesh) -> Dict[str, int]:
     return {a: mesh.get_local_rank(a) for a in axis_names(mesh)}
 
 
+# callables ``observe(axis, nbytes)``, told of every all-gather's result
+# bytes (``launch.op_cost`` counts the collectives of a call with these)
+gather_observers: list = []
+
+
 def all_gather(t, mesh, axis: str):
     """Every rank's ``t`` along ``axis``, stacked in axis order: [size,
     *t.shape] on t's device.
@@ -108,10 +113,16 @@ def all_gather(t, mesh, axis: str):
     only, so under a gloo group the payload is copied to host memory and
     the result back to t's device: this is transport, the compute stays
     on the rank's device. bf16 travels as its bytes (gloo has no 16-bit
-    types)."""
+    types). A ``meta`` tensor has no data to send: the result has the
+    gathered shape and nothing moves (the dry-run evaluates a mesh sync
+    so, over a fake process group)."""
     n = axis_size(mesh, axis)
     if n == 1:
         return t[None]
+    for observe in gather_observers:
+        observe(axis, n * t.numel() * t.element_size())
+    if t.device.type == "meta":
+        return t[None].expand((n,) + tuple(t.shape)).contiguous()
     group = mesh.get_group(axis)
     x = t.contiguous()
     if x.dtype == torch.bfloat16:

@@ -21,9 +21,13 @@ count means kept as close to ``hlo_cost``'s as eager PyTorch allows:
   * ``launches``: on the card, the kernels ``torch.profiler`` sees run on
     the device (copies and fills excluded); on the CPU, the dispatched
     ops that do work.
-  * ``collective_bytes``: 0.0 (the train CLI's steps run in one process;
-    counting the mesh syncs' collectives comes with the dry-run and its
-    cost readers, ROADMAP Queue 1 item 16 part 2).
+  * ``collective_bytes``: the result bytes of every ``launch.mesh.
+    all_gather`` the call makes, as ``hlo_cost`` sums the result bytes of
+    each collective: on the pod paths each rank's 2·C·k payload entries
+    times the pods, on the sharded path the compacted ``cap_s``
+    candidates of every shard; 0.0 for the train CLI's single-process
+    steps. ``collectives`` gives them per op on ``meta`` tensors, where
+    nothing is allocated or sent (the dry-run's ``sync_step`` record).
 
 Wrapping a call in these observers changes nothing it computes, so the
 train CLI (``--obs-hlo-cost``) counts the first real ``train_step`` and
@@ -38,6 +42,8 @@ from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import _build
+from repro_torch.launch import mesh as _mesh
+from repro_torch.utils.tree import jax_leaves
 
 # ops that allocate or only re-label memory: no bytes, no launch
 _NO_WORK = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
@@ -84,12 +90,14 @@ def op_costs(fn, *args, **kwargs):
     """Run ``fn(*args, **kwargs)`` once under the counters -> ``(result,
     {"flops", "hbm_bytes", "collective_bytes", "launches"})``; on the
     card the device is waited on before and after the call."""
-    kernel_bytes = []
+    kernel_bytes, gathered = [], []
     observe = lambda name, nbytes: kernel_bytes.append(nbytes)
+    observe_gather = lambda axis, nbytes: gathered.append(nbytes)
     on_card = any(isinstance(t, torch.Tensor) and t.is_cuda
                   for t in _pytree_leaves((args, kwargs)))
     counter = _OpCounter()
     _build.launch_observers.append(observe)
+    _mesh.gather_observers.append(observe_gather)
     try:
         if on_card:
             from torch.profiler import ProfilerActivity, profile
@@ -106,9 +114,79 @@ def op_costs(fn, *args, **kwargs):
             launches = counter.ops
     finally:
         _build.launch_observers.remove(observe)
+        _mesh.gather_observers.remove(observe_gather)
     return out, {"flops": float(counter.flops),
                  "hbm_bytes": float(counter.nbytes + sum(kernel_bytes)),
-                 "collective_bytes": 0.0, "launches": int(launches)}
+                 "collective_bytes": float(sum(gathered)), "launches": int(launches)}
+
+
+def collectives(fn, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` (on meta tensors: nothing allocated or
+    sent) and count its collectives -> ``{"all-gather": {"bytes": result
+    bytes}}``, ``{}`` when it makes none (the reference's ``collectives``
+    record)."""
+    gathered = []
+    observe = lambda axis, nbytes: gathered.append(nbytes)
+    _mesh.gather_observers.append(observe)
+    try:
+        fn(*args, **kwargs)
+    finally:
+        _mesh.gather_observers.remove(observe)
+    return {"all-gather": {"bytes": int(sum(gathered))}} if gathered else {}
+
+
+class _Reads(TorchDispatchMode):
+    """Which of ``tensors`` the dispatched ops read: a view of one (or of
+    the buffer it views, as a flat-backed tree's leaves view one flat
+    buffer) is followed to it, and any other op taking it reads it."""
+
+    def __init__(self, tensors):
+        super().__init__()
+        self.roots = {}
+        self.alive = []  # ids stay unique while tracked
+        for i, t in enumerate(tensors):
+            for x in (t, t._base):
+                if x is not None:
+                    self.roots.setdefault(id(x), set()).add(i)
+                    self.alive.append(x)
+        self.read = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        roots = set().union(*(self.roots[id(t)] for t in _pytree_leaves((args, kwargs))
+                              if isinstance(t, torch.Tensor) and id(t) in self.roots))
+        if func.is_view:
+            for o in _pytree_leaves(out):
+                if isinstance(o, torch.Tensor) and roots:
+                    self.roots[id(o)] = roots
+                    self.alive.append(o)
+        else:
+            self.read |= roots
+        return out
+
+
+def step_costs(fn, *args):
+    """Run ``fn(*args)`` once under the flop counter (on meta tensors it
+    runs at any size without allocating) -> (the flops ``op_costs``
+    counts, per leaf of ``args`` whether the call reads or returns it).
+    jax prunes a jitted step's unused arguments, so the dry-run counts
+    only those leaves as the step's arguments (the reference's
+    ``argument_size_in_bytes``); a leaf that is not a tensor counts."""
+    leaves = [l for a in args for l in jax_leaves(a)]
+    tensors = [l for l in leaves if isinstance(l, torch.Tensor)]
+    counter, reads = _OpCounter(), _Reads(tensors)
+    with counter, reads:
+        out = fn(*args)
+    returned = {id(t) for t in _pytree_leaves(out) if isinstance(t, torch.Tensor)}
+    used, i = [], 0
+    for l in leaves:
+        if isinstance(l, torch.Tensor):
+            used.append(i in reads.read or id(l) in returned)
+            i += 1
+        else:
+            used.append(True)
+    return float(counter.flops), used
 
 
 class FirstCallCosts:

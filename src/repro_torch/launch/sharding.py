@@ -14,14 +14,22 @@ mesh coordinate holds, in jax's block order (axis index times block size;
 several axes on one dim are data-major, the first axis the slowest), and
 ``place_block`` writes such a block back into the whole leaf: the rank-local
 state of the mesh syncs is made and put back together with these.
+
+``to_shardings`` and ``shaped`` build the dry-run's inputs, the
+counterparts of jax's ``NamedSharding`` and ``ShapeDtypeStruct``: each
+leaf's global shape, dtype and spec, and the block one rank holds, by the
+same rule as ``rank_block``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.launch import mesh as _mesh
+from repro_torch.utils.tree import jax_map, tree_flatten, tree_map, tree_unflatten
 
 
 class PartitionSpec(tuple):
@@ -136,3 +144,67 @@ def place_block(out, block, spec, mesh_shape: Dict[str, int], coord: Dict[str, i
     cut it from; -> out."""
     out[_block_slices(tuple(out.shape), spec, mesh_shape, coord)] = block
     return out
+
+
+# ---------------------------------------------------------------------------
+# Dry-run inputs: shapes with shardings, nothing allocated
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (jax's ``NamedSharding``)."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+
+@dataclass(frozen=True)
+class ShapeDtypeStruct:
+    """A leaf's global shape and dtype, and optionally its sharding (jax's
+    ``ShapeDtypeStruct``); ``block_shape`` is the block one rank holds."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    sharding: Any = None
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.sharding.spec if self.sharding is not None else P()
+
+    @property
+    def block_shape(self) -> Tuple[int, ...]:
+        if self.sharding is None:
+            return tuple(self.shape)
+        sl = _block_slices(tuple(self.shape), self.spec,
+                           _mesh.mesh_shape(self.sharding.mesh), {})
+        return tuple(len(range(*s.indices(n))) for s, n in zip(sl, self.shape))
+
+    @property
+    def block_nbytes(self) -> int:
+        """The bytes of one rank's block."""
+        return int(np.prod(self.block_shape, dtype=np.int64)) * self.dtype.itemsize
+
+
+def to_shardings(spec_tree, mesh):
+    """Each spec of ``spec_tree`` on ``mesh``."""
+    return jax_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def reference_dtype(dtype) -> torch.dtype:
+    """The dtype the reference's leaf has: jax runs with 64-bit types off,
+    so the port's int64 leaves (token ids, cache positions, counters) are
+    int32 there, and f64 is f32."""
+    return {torch.int64: torch.int32, torch.float64: torch.float32}.get(dtype, dtype)
+
+
+def shaped(tree_shapes, shardings):
+    """``ShapeDtypeStruct``s of ``tree_shapes`` (tensors, meta ones
+    included, or ``ShapeDtypeStruct``s) with ``shardings`` attached, in the
+    reference's dtypes (``reference_dtype``)."""
+    return jax_map(lambda l, s: ShapeDtypeStruct(tuple(l.shape), reference_dtype(l.dtype),
+                                                 sharding=s), tree_shapes, shardings)

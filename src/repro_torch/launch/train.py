@@ -65,8 +65,10 @@ of the first train step and the first sync step as they run
 ``--flat-shards S`` with ``--omega-impl fused`` runs the sharded flat
 sync: the padded flat vector as S contiguous pieces, one candidate
 compaction per piece and a merge (the single-process form of the mesh
-path, ``core.hfl.make_sync`` on a ``launch.mesh`` mesh). Checkpoints are
-not ported yet and raise, naming their ROADMAP item. ``--layers N`` keeps the first N layers of the
+path, ``core.hfl.make_sync`` on a ``launch.mesh`` mesh). ``--ckpt-dir D``
+saves the final state after eval as ``D/ckpt_{steps:08d}.msgpack``, the
+reference's file byte for byte (``repro_torch.checkpoint``; restoring is
+that module's API). ``--layers N`` keeps the first N layers of the
 architecture (full width with ``--full``), so a configuration's state fits
 a card.
 """
@@ -81,7 +83,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import HFLConfig, get_config, parse_tiers_spec
+from repro_torch.configs.base import warn_legacy_cli_flag
 from repro_torch.core.hfl import (
     SyncPlan, hfl_init, make_cluster_train_step,
     make_masked_cluster_train_step, make_sync, serving_params,
@@ -95,12 +99,6 @@ from repro_torch.models.frontends import fake_frontend_embeds
 from repro_torch.models.transformer import forward, init_model
 from repro_torch.obs import ObsConfig, RunLogger, StepClock, make_telemetry
 from repro_torch.optim import SGDM, warmup_step_decay
-
-# flag -> ROADMAP item that ports it
-_NOT_PORTED = {
-    "ckpt_dir": "Queue 1 item 17 (checkpoints)",
-}
-
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
@@ -217,10 +215,6 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     cluster's per async event), eval_loss, timing, the per-sync seconds
     and the simulator's trace and engine (None without ``--scenario``),
     and ``telemetry``, the run's telemetry handle."""
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
-                             f"(ROADMAP {item})")
     obs_cfg = None
     if (args.trace_viz or args.metrics_out or args.obs_heartbeat
             or args.obs_hlo_cost or args.obs_health):
@@ -251,8 +245,14 @@ def run(args, *, on_sync=None, wrap_train_step=None,
             raise SystemExit(f"--tiers conflicts with {'/'.join(sorted(given))}")
         tiers = parse_tiers_spec(args.tiers)
     else:
-        tiers = parse_tiers_spec(
-            f"{args.clusters or 4}x{args.mus or 2}:H={args.period or 4}")
+        for f in sorted(given):
+            warn_legacy_cli_flag(
+                f, "--tiers CLUSTERSxMUS:H=PERIOD "
+                   "(fan-outs root-down, periods bottom-up)")
+        clusters = args.clusters if args.clusters is not None else 4
+        mus = args.mus if args.mus is not None else 2
+        period = args.period if args.period is not None else 4
+        tiers = parse_tiers_spec(f"{clusters}x{mus}:H={period}")
     hfl = HFLConfig(tiers=tiers, sync_mode=args.sync,
                     omega_impl=args.omega_impl, sync_layout=args.sync_layout,
                     flat_shards=args.flat_shards, wire_format=args.wire_format,
@@ -437,6 +437,9 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     else:
         log.log("eval", f"[train] no training rounds completed; "
                 f"eval-loss={eval_loss:.4f}", eval_loss=eval_loss)
+    if args.ckpt_dir:
+        path = save_checkpoint(args.ckpt_dir, args.steps, state._asdict())
+        log.log("checkpoint", f"[train] checkpoint -> {path}", path=str(path))
     if tele.health.enabled:
         hs = tele.health.summary()
         log.log("health_summary",

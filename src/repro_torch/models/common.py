@@ -9,6 +9,7 @@ not jax's, so parity tests carry weights across with ``utils.convert``.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +22,29 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding hints
+# ---------------------------------------------------------------------------
+# The reference's launch code names the mesh axes of the activations' batch
+# dim at trace time, and its model code pins that sharding at block
+# boundaries, hints to XLA's GSPMD partitioner. The port has no partitioner
+# (each rank runs its own unpartitioned program on the blocks it holds), so
+# both names are kept for code written against the reference and do
+# nothing; the port's step builders do not call them.
+
+
+@contextmanager
+def activation_sharding(axes):
+    """A no-op: ``axes`` (the mesh axes of the batch dim) has nothing to
+    constrain in the port."""
+    yield
+
+
+def shard_batch(x):
+    """``x`` unchanged (see ``activation_sharding``)."""
+    return x
 
 
 def dense_init(gen, shape, dtype, scale, device):

@@ -323,10 +323,14 @@ def prefill(params, tokens, cfg, *, frontend_embeds=None, groups=1, max_len=None
     dev = x.device
     cache = init_cache(cfg, B, max_len or T, device=dev)
     S = cache_len(cfg, max_len or T)
-    keep = torch.arange(max(T - S, 0), T, device=dev)  # positions retained
+    # positions retained; without a window a slot beyond the cache is
+    # dropped, as jax's scatter does (the kept ones are a prefix: a slice,
+    # which also keeps the step evaluable on meta tensors)
+    lo = max(T - S, 0)
+    keep = torch.arange(lo, T if cfg.sliding_window else max(min(T, S), lo),
+                        device=dev)
     slots = keep % S if cfg.sliding_window else keep
-    ok = slots < S  # a slot beyond the cache is dropped, as jax's scatter does
-    keep_slots = (keep[ok], slots[ok])
+    keep_slots = (keep, slots)
 
     if cfg.arch_type in ("ssm", "hybrid"):
         shared = params.get("shared")

@@ -5,7 +5,16 @@ depth-first with each dict's keys SORTED. The port keeps the same dicts
 and the same leaf order, so flat index ``i`` names the same entry in both
 packages. A tree definition is the tuple of leaf key paths.
 ``flatten_to_vector``/``unflatten_from_vector`` are the flat f32 vector of
-``repro.utils.tree`` that the paper-exact engine trains.
+``repro.utils.tree`` that the paper-exact engine trains; ``tree_add``,
+``tree_scale``, ``tree_zeros_like``, ``global_norm``, ``param_count`` and
+``param_bytes`` are its helpers.
+
+``jax_leaves`` and ``jax_map`` walk the other trees jax flattens: dicts
+(sorted keys), lists, tuples and NamedTuples (an ``HFLState``) are nodes,
+``None`` is an empty node, and anything else is a leaf, a subclass of
+tuple that is not a NamedTuple (``launch.sharding.PartitionSpec``)
+included. The checkpoint's leaves and the dry-run's input specs come in
+this order.
 """
 from __future__ import annotations
 
@@ -54,6 +63,65 @@ def tree_map(fn: Callable, tree, *rest):
     leaves, treedef = tree_flatten(tree)
     others = [tree_flatten(r)[0] for r in rest]
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def _is_node(x) -> bool:
+    return isinstance(x, (dict, list)) or type(x) is tuple or (
+        isinstance(x, tuple) and hasattr(x, "_fields"))
+
+
+def jax_leaves(tree) -> list:
+    """The leaves of ``tree`` in ``jax.tree.leaves`` order (``None``
+    dropped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in jax_leaves(tree[k])]
+    if _is_node(tree):
+        return [l for v in tree for l in jax_leaves(v)]
+    return [tree]
+
+
+def jax_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure), called in ``jax_leaves`` order;
+    -> a tree of ``tree``'s structure, ``None`` kept."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        vals = {k: jax_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+        return {k: vals[k] for k in tree}
+    if _is_node(tree):
+        vals = [jax_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else type(tree)(vals)
+    return fn(tree, *rest)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares (the
+    reference's order: one reduction per leaf, then a running sum)."""
+    total = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def param_count(tree) -> int:
+    return int(sum(np.prod(x.shape) for x in tree_leaves(tree)))
+
+
+def param_bytes(tree) -> int:
+    return int(sum(np.prod(x.shape) * x.dtype.itemsize for x in tree_leaves(tree)))
 
 
 def flatten_to_vector(tree):

@@ -1,7 +1,10 @@
-"""Guards of the PyTorch port: it imports nothing of the JAX package, its
-entry points (the training CLI, the paper-exact path) run on the CPU when
-asked, and nothing falls back to the CPU when the card was asked for."""
+"""Guards of the PyTorch port: it imports nothing of the JAX package, nor
+``ml_dtypes`` (the card machine has none) or ``msgpack`` (the checkpoint
+format is encoded by hand), its entry points (the training CLI, the
+paper-exact path) run on the CPU when asked, and nothing falls back to the
+CPU when the card was asked for."""
 import ast
+import json
 import shutil
 import subprocess
 import sys
@@ -36,7 +39,7 @@ def _port_files():
 def test_port_imports_neither_jax_nor_reference(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax",
-                                  "ml_dtypes")]
+                                  "ml_dtypes", "msgpack")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -155,10 +158,29 @@ def test_comm_entry_points_raise_without_a_card():
 
 
 def test_unported_flags_raise():
+    """No flag of the reference's train CLI is left unported: the port's
+    parser takes every one, and the last that raised, ``--ckpt-dir``, now
+    writes ``ckpt_{steps:08d}.msgpack`` after eval and logs a
+    ``checkpoint`` event."""
+    import re
+    import tempfile
+
+    from repro.launch import train as jtrain
     from repro_torch.launch import train
 
-    with pytest.raises(SystemExit, match="not ported.*item 17"):
-        train.run(train.parse_args(["--ckpt-dir", "ckpt", "--device", "cpu"]))
+    flags = lambda path: set(re.findall(r'add_argument\("(--[a-z0-9-]+)"',
+                                        Path(path).read_text()))
+    missing = flags(jtrain.__file__) - flags(train.__file__)
+    assert not missing, missing
+    with tempfile.TemporaryDirectory() as d:
+        log = Path(d) / "run.jsonl"
+        train.run(train.parse_args(["--ckpt-dir", d, "--device", "cpu", "--steps", "4",
+                                    "--tiers", "2x1:H=2", "--batch-per-mu", "1",
+                                    "--seq", "8", "--metrics-out", str(log)]))
+        assert sorted(p.name for p in Path(d).glob("ckpt_*")) == ["ckpt_00000004.msgpack"]
+        events = [json.loads(l) for l in log.read_text().splitlines()]
+        ck = [e for e in events if e.get("event") == "checkpoint"]
+        assert len(ck) == 1 and ck[0]["path"] == str(Path(d) / "ckpt_00000004.msgpack")
     # the sharded flat vector is ported: a short run completes
     out = train.run(train.parse_args(["--flat-shards", "2", "--omega-impl", "fused",
                                       "--device", "cpu", "--steps", "2",
@@ -167,10 +189,51 @@ def test_unported_flags_raise():
     assert len(out["hist"]) == 2 and len(out["sync_s"]) == 1
 
 
+@pytest.mark.parametrize("argv,message", [
+    (["--clusters", "0"], "fanout must be >= 1"),
+    (["--mus", "0"], "fanout must be >= 1"),
+    (["--period", "0"], "period must be >= 1"),
+])
+def test_zero_valued_legacy_flags_are_rejected_by_both_clis(argv, message):
+    """``--clusters/--mus/--period 0`` reach ``parse_tiers_spec`` as given
+    (``0x2:H=4``, ``4x0:H=4``, ``4x2:H=0``) in both CLIs, which reject
+    them, and never run as the defaults 4 / 2 / 4."""
+    from repro.configs.base import _reset_legacy_hfl_warnings as j_reset
+    from repro.launch import train as jtrain
+    from repro_torch.configs.base import _reset_legacy_hfl_warnings
+    from repro_torch.launch import train
+
+    runs = ((j_reset, lambda: jtrain.main(argv + ["--steps", "1"])),
+            (_reset_legacy_hfl_warnings, lambda: train.run(train.parse_args(
+                argv + ["--steps", "1", "--device", "cpu"]))))
+    for reset, run in runs:
+        reset()
+        with pytest.warns(DeprecationWarning, match=f"{argv[0]} is deprecated; use "
+                          "--tiers CLUSTERSxMUS:H=PERIOD"):
+            with pytest.raises(ValueError, match=message):
+                run()
+
+
+def test_legacy_flag_runs_with_a_deprecation_warning():
+    from repro_torch.configs.base import _reset_legacy_hfl_warnings
+    from repro_torch.launch import train
+
+    _reset_legacy_hfl_warnings()
+    with pytest.warns(DeprecationWarning, match="--period is deprecated"):
+        out = train.run(train.parse_args(["--clusters", "2", "--mus", "1", "--period", "2",
+                                          "--device", "cpu", "--steps", "2",
+                                          "--batch-per-mu", "1", "--seq", "8"]))
+    assert len(out["hist"]) == 2 and len(out["sync_s"]) == 1
+
+
 def test_package_surfaces_match_the_reference():
     """``__all__`` of the port's ``obs``, ``comm`` and ``wireless`` is the
     reference's (``repro.wireless`` has none: its public names are what it
-    imports from its submodules)."""
+    imports from its submodules). ``core``, ``models``, ``utils``,
+    ``checkpoint``, ``kernels.fused_sync`` and ``kernels.dgc`` export the
+    reference's public names too, and its submodules (``utils.jaxcompat``
+    has no counterpart: it routes jax's version drift)."""
+    import importlib
     import types
 
     import repro.comm
@@ -187,6 +250,133 @@ def test_package_surfaces_match_the_reference():
     assert sorted(repro_torch.wireless.__all__) == public
     for pkg in (repro_torch.obs, repro_torch.comm, repro_torch.wireless):
         assert all(hasattr(pkg, n) for n in pkg.__all__)
+
+    def names(pkg, modules):
+        return sorted(n for n, v in vars(pkg).items() if not n.startswith("_")
+                      and isinstance(v, types.ModuleType) == modules
+                      and n not in ("annotations", "jaxcompat"))
+
+    for name in ("core", "models", "utils", "checkpoint", "kernels.fused_sync",
+                 "kernels.dgc"):
+        ref = importlib.import_module(f"repro.{name}")
+        port = importlib.import_module(f"repro_torch.{name}")
+        assert names(port, False) == names(ref, False), name
+        assert set(names(ref, True)) <= set(names(port, True)), name
+
+
+def test_legacy_hfl_keywords_and_read_shims_match_the_reference():
+    """``HFLConfig(num_clusters=4, period=2)`` builds the reference's tiers,
+    ``dataclasses.replace(cfg, period=3)`` goes through the same shim, and
+    each deprecated read gives the reference's value and warning, once."""
+    import dataclasses
+    import warnings
+
+    from repro.configs import base as jb
+    from repro_torch.configs import base as tb
+
+    kw = dict(num_clusters=4, mus_per_cluster=3, period=2, phi_mu_ul=0.95,
+              phi_sbs_dl=0.8, phi_sbs_ul=0.85, phi_mbs_dl=0.7, beta_s=0.4, beta_m=0.3)
+    cases = [({"num_clusters": 4, "period": 2}, None), (kw, None),
+             ({"period": 3}, {"omega_impl": "fused", "sync_mode": "dense"})]
+    for legacy, extra in cases:
+        j, t = jb.HFLConfig(**legacy, **(extra or {})), tb.HFLConfig(**legacy, **(extra or {}))
+        assert [dataclasses.astuple(x) for x in t.tiers] == \
+               [dataclasses.astuple(x) for x in j.tiers]
+        assert (t.omega_impl, t.sync_mode) == (j.omega_impl, j.sync_mode)
+        jr, tr = dataclasses.replace(j, period=5), dataclasses.replace(t, period=5)
+        assert tr.tiers[1].period == jr.tiers[1].period == 5
+
+    def reads(mod):
+        mod._reset_legacy_hfl_warnings()
+        cfg = mod.HFLConfig(**kw)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            vals = [getattr(cfg, f) for f in kw for _ in range(2)]  # each read twice
+        return vals, [str(w.message) for w in caught if w.category is DeprecationWarning]
+
+    vals, msgs = reads(tb)
+    assert (vals, msgs) == reads(jb)
+    assert len(msgs) == 7  # the 7 deprecated reads, once each
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        tb.HFLConfig(clusters=4)
+    deep = tb.parse_tiers_spec("2x2x4:H=2,2")
+    with pytest.raises(ValueError, match="ambiguous on a depth-3"):
+        tb.HFLConfig(tiers=deep, period=2)
+    with pytest.raises(AttributeError, match="depth-3"):
+        tb.HFLConfig(tiers=deep).period
+
+
+def test_make_sync_step_warns_once_and_builds_the_same_sync():
+    import warnings
+
+    from repro.core import hfl as jhfl
+    from repro_torch.configs.base import HFLConfig
+    from repro_torch.core import hfl as thfl
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import SGDM
+    from repro_torch.utils.tree import tree_leaves
+
+    from repro.configs.base import HFLConfig as JHFLConfig
+
+    msgs = []
+    for mod, cfg in ((jhfl, JHFLConfig(num_clusters=2, mus_per_cluster=1, period=2)),
+                     (thfl, HFLConfig(num_clusters=2, mus_per_cluster=1, period=2))):
+        mod._make_sync_step_warned = False
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mod.make_sync_step(cfg)
+            mod.make_sync_step(cfg)
+        msgs.append([str(w.message) for w in caught if w.category is DeprecationWarning])
+    assert msgs[0] == msgs[1] and len(msgs[1]) == 1
+    hfl = HFLConfig(num_clusters=2, mus_per_cluster=1, period=2, phi_sbs_ul=0.9,
+                    phi_mbs_dl=0.9)
+    params = init_model(torch.Generator().manual_seed(0), get_config("olmo-1b").reduced(),
+                        device="cpu")
+    states = []
+    for build in (lambda: thfl.make_sync_step(hfl),
+                  lambda: thfl.make_sync(thfl.SyncPlan.from_config(hfl))):
+        state = thfl.hfl_init(params, SGDM(), hfl)
+        gen = torch.Generator().manual_seed(1)
+        for p in tree_leaves(state.params):
+            p.add_(0.01 * torch.randn(p.shape, generator=gen).to(p.dtype))
+        states.append(build()(state))
+    for a, b in zip(tree_leaves(states[0]._asdict()), tree_leaves(states[1]._asdict())):
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+
+
+def test_tree_helpers_match_the_reference():
+    """``param_count`` / ``param_bytes`` exact, ``tree_add`` / ``tree_scale``
+    / ``tree_zeros_like`` exact, on the same weights. ``global_norm``: the
+    port within rtol 1e-6 of the exact (f64) norm; the reference's XLA-CPU
+    f32 reduction of a 131k-entry leaf is off by ~4e-6 of it here (the two
+    sum in different orders), so port against reference at rtol 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as j_get_config
+    from repro.models.transformer import init_model as j_init
+    from repro.utils import tree as jt
+    from repro_torch.utils import tree as tt
+    from repro_torch.utils.convert import params_from_numpy
+
+    jp = j_init(jax.random.PRNGKey(0), j_get_config("olmo-1b").reduced())
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    assert tt.param_count(tp) == jt.param_count(jp)
+    assert tt.param_bytes(tp) == jt.param_bytes(jp)
+    exact = np.sqrt(sum(np.sum(np.asarray(x, np.float64) ** 2)
+                        for x in jax.tree.leaves(jp)))
+    np.testing.assert_allclose(float(tt.global_norm(tp)), exact, rtol=1e-6)
+    np.testing.assert_allclose(float(tt.global_norm(tp)), float(jt.global_norm(jp)),
+                               rtol=1e-5)
+    f32 = lambda t: jax.tree.map(lambda x: x.astype(jnp.float32), t)
+    jf, tf = f32(jp), tt.tree_map(lambda x: x.float(), tp)
+    for jx, tx in ((jt.tree_add(jf, jf), tt.tree_add(tf, tf)),
+                   (jt.tree_scale(jf, 0.5), tt.tree_scale(tf, 0.5)),
+                   (jt.tree_zeros_like(jp), tt.tree_zeros_like(tp))):
+        for a, b in zip(jax.tree.leaves(jx), tt.tree_leaves(tx), strict=True):
+            np.testing.assert_array_equal(np.asarray(a, np.float32), b.float().numpy())
+    assert float(tt.global_norm({})) == 0.0
 
 
 def test_kernel_wrappers_check_their_operands():
