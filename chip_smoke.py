@@ -49,7 +49,9 @@ nonzero):
      at ``--full --tiers 2x2:H=2 --sync sparse --batch-per-mu 4 --seq 128``
      for 4 steps (2 syncs), once with ``--omega-impl fused`` and once with
      ``--omega-impl pallas``; launch counts are zeroed just before and read
-     just after each run, and the fused run says how many of its
+     just after each run (the attention kernels' too: with remat, two
+     forwards and one backward a layer a cluster a step, plus the eval's
+     forward), and the fused run says how many of its
      selections the ``block_select`` candidates answered and how many the
      exact fallback answered;
   5. the paper-exact path: full-width ResNet-18 under ``FaithfulHFL``
@@ -151,13 +153,15 @@ nonzero):
      new tokens, ``--full``, bf16) for all ten architectures, at full depth
      but for granite-34b and llava-next-34b (16 layers) and dbrx-132b and
      deepseek-v2-236b (2 layers, ``SERVE_LAYERS``): finite logits, tokens
-     [8, 16], prefill ms, decode ms per step and the peak; (b) decode ==
+     [8, 16], prefill ms, decode ms per step, the peak and one attention
+     forward launch per attention site (``attn_sites``); (b) decode ==
      forward at full width in f32 (``CACHE_RUNS``: danube, deepseek-v2 and
      dbrx at 2 layers with a ``capacity_factor`` that drops no token, 8 or
      E / K where larger, mamba2 at 2 layers with a
      300-token prompt across its SSD chunk, zamba2 at 7 layers, llava at 2
      layers): prefill with ``max_len`` = prompt + frontend + 3, three
-     decode steps against the full-sequence logits at rtol/atol 2e-3; and
+     decode steps against the full-sequence logits at rtol/atol 2e-3 (two
+     attention forward launches a site: the forward and the prefill); and
      every reduced configuration's forward card = CPU in f32 at 1e-4; (c)
      HFL training through ``train.run`` at ``2x2:H=2 --sync sparse
      --batch-per-mu 4 --seq 128``, 4 steps (``FAMILY_TRAIN``): mamba2-780m
@@ -167,13 +171,15 @@ nonzero):
      the same run on the CPU at rtol 1e-4; full-width MoE training waits
      for ROADMAP Queue 1 item 16 part 3, a machine with four cards (one
      deepseek-v2 layer is ~3.97B params, ~200 GB of HFL state at N = 2).
-     Each run: 6 launches of each kernel of its impl, the rows identical
+     Each run: 6 launches of each kernel of its impl, the attention
+     launches the path implies (``train_attn_want``), the rows identical
      after each sync, finite losses, the steady s/step, sync ms and a peak
      under ``PEAK_LIMIT_GB``;
  10. the sharded flat vector and the mesh syncs (``sharded_paths``): (a)
      the main path's run with ``--flat-shards 4`` (full olmo-1b width and
      depth, ``fused`` Ω): S·(N + 1) = 12 ``block_select`` launches per sync
-     plus the second launches it prints, the rows identical after each
+     plus the second launches it prints, the attention launches the path
+     implies, the rows identical after each
      sync, each hop's exactness certificate printed; the last sync's input
      copied to the host (the copy's seconds are taken off its sync ms) and
      that sync run again with the plain compaction on the card, every
@@ -192,7 +198,8 @@ nonzero):
      narrow size card = CPU bit for bit. NCCL across cards waits for a
      machine with four cards;
  11. one JSON line listing every ported kernel with its launches on each
-     path (and their sum), error, times and bound; it comes last, after
+     path (and their sum), error, times and bound; it comes last, after 13
+     and
  12. checkpoints and the dry-run (``checkpoint_and_dryrun``): (b) the
      dry-run of olmo-1b x train_4k on both production meshes (``meta``
      tensors over a fake process group: nothing allocated), and its
@@ -206,10 +213,31 @@ nonzero):
      CPU encoder's on a host copy of the saved state, and one more period
      (2 steps and a sync) from the saved and from the restored state with
      equal fingerprints and the impl's launches (``block_select``, or
-     ``update_max`` and ``tail_hist``); it prints the file's GB, write and
+     ``update_max`` and ``tail_hist``; the train CLI run's attention
+     launches too); it prints the file's GB, write and
      read seconds and GB/s, the free disk (it fails when the file cannot
      fit) and the host's resident set during the write, the read and the
-     CPU encoding.
+     CPU encoding;
+ 13. long context (``long_context``, before the summary): (a) the main
+     path at train_4k's length, ``LONG_ARGV`` (full olmo-1b, ``--seq 4096
+     --batch-per-mu 1``, fused, 4 steps): s/step, sync ms, peak, the
+     attention kernels' launches against what the path implies (remat's
+     recompute and the eval's 8,192-token chunks included) and
+     ``block_select``'s; one cluster's loss forward and backward at [2,
+     4096] with ``remat`` off and on (the same loss, the gradients
+     held bit for bit, both peaks); (b) the serving twin at
+     prefill_32k's length, batch 2, 8 new tokens, for olmo-1b and
+     danube3-4b (window 4096, the ring cache wrapping): prefill s, decode
+     ms/step, peak, one forward launch a layer; decode == forward in f32 at
+     2 layers and lengths the reference takes (``LONG_CACHE_RUNS``) at
+     2e-3; (c) ``flash_attn_fwd``/``flash_attn_bwd`` against their plain
+     versions at ``ATTN_SHAPES`` (the paths' shapes: olmo's train_4k,
+     13b's two prefills, forward only for danube's, phase 4's cluster
+     batch; danube's window and GQA at 8,192, MLA, and the edge cases) in
+     f32 (forward rtol 1e-5 / atol 1e-6, gradients 1e-4 / 1e-5) and bf16
+     (one bf16 ulp), then timed at olmo's
+     train_4k and prefill_32k shapes beside their bounds and SDPA
+     (efficient backend) on f32 copies.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
 result. ``--profile DIR`` runs phases 4 and 5 under ``torch.profiler`` and
@@ -237,7 +265,8 @@ F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 N_CLUSTERS, STEPS, PERIOD = 2, 4, 2
 # kernel functions of csrc/*.cu, as the build log names them
 KERNEL_FUNCTIONS = ("select_kernel", "update_max_kernel", "slice_hist_kernel",
-                    "tile_order_sum_kernel", "apply_mask_kernel", "bitpack_kernel")
+                    "tile_order_sum_kernel", "apply_mask_kernel", "bitpack_kernel",
+                    "fwd_kernel", "dq_kernel", "dkv_kernel")
 # block_select's spans (csrc/fused_sync.cu): a warp's and a CTA's share of a tile
 SELECT_WARP_SPAN, SELECT_CTA_SPAN = 1024, 8192
 # bitpack's design (csrc/bitpack.cu): CTAs per tile, elements per chunk
@@ -359,6 +388,10 @@ def ptxas_report(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = next((k for k in KERNEL_FUNCTIONS if k in mangled), mangled)
+            if "flash_attn" in mangled:  # one line per instantiation
+                db = mangled.split("Li", 1)[1].split("E", 1)[0]
+                dt = "bf16" if "nv_bfloat16" in mangled else "f32"
+                name = f"flash_attn {name}<{dt},{db}>"
         elif name and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
             out.setdefault(name, {}).update(stack_bytes=nums[0], spill_stores=nums[1],
@@ -533,13 +566,34 @@ def model_families(torch, counters, by_path, smi):
     dev = torch.device("cuda")
     t9 = time.perf_counter()
     limit = PEAK_LIMIT_GB * 1e9
+    attn = attn_kernels()
+
+    def attn_zero():
+        for fn in attn.values():
+            fn.launches = 0
+
+    def attn_check(what, forwards, cfg):
+        """The attention launches since ``attn_zero``: ``forwards`` no-grad
+        forwards of ``cfg`` launch the forward kernel at each attention
+        site, and nothing launches the backward."""
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in attn.items()}
+        want = {"flash_attn_fwd": forwards * attn_sites(cfg), "flash_attn_bwd": 0}
+        if got != want:
+            raise AssertionError(f"{what}: attention launches {got}, want {want}")
+        return got
 
     # 9a. the serving twin, the example's defaults, --full
     for arch in sorted(ARCHS):
         free(torch)
+        attn_zero()
         out = serve_batched.run(arch, batch=8, prompt_len=48, new_tokens=16,
                                 device="cuda", full=True,
                                 layers=SERVE_LAYERS.get(arch))
+        # one prefill; decode attends through the cache, not the kernel
+        launches = attn_check(f"serve {arch}", 1, dataclasses.replace(
+            get_config(arch), num_layers=out["layers"]))
+        by_path[f"{arch} serve"] = launches
         finite = bool(torch.isfinite(out["logits"][..., :get_config(arch).vocab_size]
                                      .float()).all())
         emit({"phase": "families_serve", "arch": arch, "layers": out["layers"],
@@ -548,7 +602,7 @@ def model_families(torch, counters, by_path, smi):
               "prefill_ms": 1e3 * out["prefill_s"],
               "decode_ms_per_step": out["decode_ms_per_step"],
               "tokens_shape": list(out["tokens"].shape), "finite_logits": finite,
-              "peak_gb": out["peak_gb"], "card": smi})
+              "launches": launches, "peak_gb": out["peak_gb"], "card": smi})
         if not finite or tuple(out["tokens"].shape) != (8, 16):
             raise AssertionError(f"serve {arch}: non-finite logits or bad tokens")
         if out["peak_gb"] * 1e9 >= limit:
@@ -578,6 +632,7 @@ def model_families(torch, counters, by_path, smi):
         fe = (fake_frontend_embeds(torch.Generator().manual_seed(4), cfg, 2).to(dev)
               if F else None)
         errs = []
+        attn_zero()
         with torch.no_grad():
             full, _ = forward(params, toks, cfg, frontend_embeds=fe)
             _, cache = prefill(params, toks[:, :T], cfg, frontend_embeds=fe,
@@ -589,12 +644,12 @@ def model_families(torch, counters, by_path, smi):
                 if not torch.allclose(got, want, rtol=CACHE_TOL, atol=CACHE_TOL):
                     raise AssertionError(f"cache {arch}: decode step {s} differs "
                                          f"from forward by {errs[-1]}")
-        torch.cuda.synchronize()
+        launches = attn_check(f"cache {arch}", 2, cfg)  # the forward, the prefill
         peak = torch.cuda.max_memory_allocated()
         emit({"phase": "families_cache", "arch": arch, "layers": layers,
               "prompt": T, "frontend_tokens": F, "steps": CACHE_STEPS,
               "dtype": "float32", "capacity_factor": cfg.capacity_factor,
-              "max_abs_err_by_step": errs, "tol": CACHE_TOL,
+              "max_abs_err_by_step": errs, "tol": CACHE_TOL, "launches": launches,
               "peak_gb": peak / 1e9, "card": smi})
         if peak >= limit:
             raise AssertionError(f"cache {arch}: peak {peak / 1e9:.1f} GB")
@@ -648,11 +703,11 @@ def model_families(torch, counters, by_path, smi):
         try:
             free(torch)
             torch.cuda.reset_peak_memory_stats()
-            for fn in counters.values():
+            for fn in (*counters.values(), *attn.values()):
                 fn.launches = 0
             out = train.run(train.parse_args(argv), on_sync=on_sync)
             torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in counters.items()}
+            launches = {k: fn.launches for k, fn in {**counters, **attn}.items()}
             peak = torch.cuda.max_memory_allocated()
             cpu = None
             if f32:
@@ -677,6 +732,10 @@ def model_families(torch, counters, by_path, smi):
             if launches[name] != want_launches:
                 raise AssertionError(f"train {arch}: {name} launched "
                                      f"{launches[name]} times, want {want_launches}")
+        want_attn = train_attn_want(argv)
+        if {k: launches[k] for k in want_attn} != want_attn:
+            raise AssertionError(f"train {arch}: attention launches {launches}, "
+                                 f"want {want_attn}")
         if not (len(identical) == STEPS // PERIOD and all(identical)):
             raise AssertionError(f"train {arch}: cluster rows differ after a sync")
         if not (math.isfinite(out["eval_loss"])
@@ -1015,17 +1074,18 @@ def sharded_paths(torch, counters, by_path, smi):
 
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
+    counted = {**counters, **attn_kernels()}
+    for fn in counted.values():
         fn.launches = 0
     second0 = fops.shard_select_candidates.second_launches
     train.make_sync = capturing_make_sync
+    argv = MAIN_ARGV + ["--omega-impl", "fused", "--flat-shards", str(SHARDS)]
     try:
-        out = train.run(train.parse_args(MAIN_ARGV + [
-            "--omega-impl", "fused", "--flat-shards", str(SHARDS)]), on_sync=on_sync)
+        out = train.run(train.parse_args(argv), on_sync=on_sync)
     finally:
         train.make_sync = real_make_sync
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: fn.launches for k, fn in counted.items()}
     peak = torch.cuda.max_memory_allocated()
     second = fops.shard_select_candidates.second_launches - second0
     syncs = STEPS // PERIOD
@@ -1050,6 +1110,9 @@ def sharded_paths(torch, counters, by_path, smi):
     if launches["block_select"] != want:
         raise AssertionError(f"sharded: block_select launched "
                              f"{launches['block_select']} times, want {want}")
+    want_attn = train_attn_want(argv)
+    if {k: launches[k] for k in want_attn} != want_attn:
+        raise AssertionError(f"sharded: attention launches {launches}, want {want_attn}")
     if not (len(grab["identical"]) == syncs and all(grab["identical"])):
         raise AssertionError("sharded: cluster rows differ after a sync")
     if not (math.isfinite(out["eval_loss"]) and all(map(math.isfinite, out["hist"]))):
@@ -1407,19 +1470,19 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
 
         free(torch)
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
+        counted = {**counters, **attn_kernels()}
+        for fn in counted.values():
             fn.launches = 0
         second0 = fops.shard_select_candidates.second_launches
-        args = train.parse_args(MAIN_ARGV + [
-            "--layers", str(CKPT_LAYERS), "--omega-impl", impl,
-            "--flat-shards", str(shards), "--ckpt-dir", str(d)])
+        argv = MAIN_ARGV + ["--layers", str(CKPT_LAYERS), "--omega-impl", impl,
+                            "--flat-shards", str(shards), "--ckpt-dir", str(d)]
         train.save_checkpoint = timed_save
         try:
-            out = train.run(args)
+            out = train.run(train.parse_args(argv))
         finally:
             train.save_checkpoint = real_save
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = {k: fn.launches for k, fn in counted.items()}
         second = fops.shard_select_candidates.second_launches - second0
         by_path[f"ckpt olmo-1b {CKPT_LAYERS} layers {name}"] = launches
         per_sync = {k: (shards * (N + 1) if shards > 1 else N + 1)
@@ -1429,6 +1492,10 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
             if launches[k] != want:
                 raise AssertionError(f"checkpoint {name}: {k} launched "
                                      f"{launches[k]} times, want {want}")
+        for k, n in train_attn_want(argv).items():
+            if launches[k] != n:
+                raise AssertionError(f"checkpoint {name}: {k} launched "
+                                     f"{launches[k]} times, want {n}")
         if not (math.isfinite(out["eval_loss"]) and all(map(math.isfinite, out["hist"]))):
             raise AssertionError(f"checkpoint {name}: non-finite loss")
         path = d / f"ckpt_{STEPS:08d}.msgpack"
@@ -1514,6 +1581,386 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
         free(torch)
         shutil.rmtree(d)
     emit({"phase": "checkpoint_and_dryrun_done", "seconds": time.perf_counter() - t12})
+
+
+# ---- phase 13: long context ------------------------------------------------
+# 13a: the main path at train_4k's length (its batch of 256 cut to 2 MUs x 1
+# a cluster); 13b: the serving twin at prefill_32k's length (its batch of 32
+# cut to 2: the full batch's cache alone is 68.7 GB)
+LONG_SEQ, LONG_STEPS = 4096, 4
+LONG_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
+             "--omega-impl", "fused", "--batch-per-mu", "1", "--seq", str(LONG_SEQ),
+             "--steps", str(LONG_STEPS), "--log-every", "1", "--device", "cuda"]
+PREFILL_LEN, PREFILL_BATCH, PREFILL_NEW = 32768, 2, 8
+PREFILL_ARCHS = ("olmo-1b", "h2o-danube-3-4b")
+# 13b's decode == forward in f32 at 2 layers: arch -> prompt; one decoded
+# token makes the total a multiple of 512 (a length the reference takes);
+# danube's 8,192 tokens wrap its 4,096-slot ring cache
+LONG_CACHE_RUNS = {"olmo-1b": 1023, "h2o-danube-3-4b": 8191, "deepseek-v2-236b": 2047}
+# 13c: kernel against plain version: name -> (B, T, S, H, Hkv, Dk, Dv, window,
+# q_offset); the first is the headline (olmo-1b at train_4k); then 13b's
+# prefills and phase 4's cluster batch (2 MUs x 4 rows of 128 tokens)
+ATTN_SHAPES = {
+    "olmo-1b train_4k": (2, 4096, 4096, 16, 16, 128, 128, 0, 0),
+    "olmo-1b prefill_32k": (PREFILL_BATCH, PREFILL_LEN, PREFILL_LEN,
+                            16, 16, 128, 128, 0, 0),
+    "danube3-4b prefill_32k": (PREFILL_BATCH, PREFILL_LEN, PREFILL_LEN,
+                               32, 8, 120, 120, 4096, 0),
+    "olmo-1b seq 128": (8, 128, 128, 16, 16, 128, 128, 0, 0),
+    "danube3-4b window": (1, 8192, 8192, 32, 8, 120, 120, 4096, 0),
+    "deepseek-v2 mla": (1, 2048, 2048, 128, 128, 192, 128, 0, 0),
+    "one tile": (2, 384, 384, 4, 2, 64, 64, 0, 0),
+    "q_offset": (1, 100, 612, 8, 2, 128, 128, 0, 512),
+    "ragged": (1, 1000, 1000, 4, 4, 112, 112, 300, 0),
+    "reduced d16": (2, 96, 96, 4, 4, 16, 16, 0, 0),
+    "reduced d32": (2, 160, 160, 4, 2, 32, 32, 64, 0),
+}
+# shapes held forward only: their path runs no backward (olmo's prefill is
+# also 13c's timed backward shape, so its gradients are held too)
+ATTN_FORWARD_ONLY = ("danube3-4b prefill_32k",)
+ATTN_TOL = {"fwd": (1e-5, 1e-6), "grad": (1e-4, 1e-5)}  # f32 (rtol, atol)
+BF16_TFLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+
+
+def attn_kernels():
+    """The attention wrappers by name (their ``launches`` counters)."""
+    from repro_torch.kernels.flash_attn import kernel as FA
+
+    return {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd}
+
+
+def attn_sites(cfg):
+    """Attention calls in one forward (or prefill) of ``cfg``: one a layer,
+    the hybrid's shared-block sites, none in a pure SSM."""
+    from repro_torch.models.transformer import num_shared_attn_sites
+
+    if cfg.arch_type == "ssm":
+        return 0
+    return num_shared_attn_sites(cfg) if cfg.arch_type == "hybrid" else cfg.num_layers
+
+
+def attn_launches_want(sites, steps, clusters, seq):
+    """Attention kernel launches of a train CLI run with remat, for a model
+    with ``sites`` attention calls a forward: each step runs every
+    cluster's forward, its recompute and its backward; the eval forwards
+    its 32 rows in chunks of ``EVAL_CHUNK_TOKENS``."""
+    from repro_torch.launch.train import EVAL_CHUNK_TOKENS
+
+    chunks = -(-32 // max(1, EVAL_CHUNK_TOKENS // seq))
+    return {"flash_attn_fwd": steps * clusters * 2 * sites + chunks * sites,
+            "flash_attn_bwd": steps * clusters * sites}
+
+
+def train_attn_want(argv):
+    """``attn_launches_want`` for ``train.run(train.parse_args(argv))``
+    (``N_CLUSTERS`` clusters), the model resolved as the CLI does."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    args = train.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    assert cfg.remat, "attn_launches_want counts the remat recompute"
+    return attn_launches_want(attn_sites(cfg), args.steps, N_CLUSTERS, args.seq)
+
+
+def kept_pairs(T, S, window, q_offset):
+    """(q, k) pairs the causal / window mask keeps."""
+    import numpy as np
+
+    qpos = q_offset + np.arange(T)
+    hi = np.minimum(qpos, S - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros_like(qpos)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attn_bound(shape, elem, backward):
+    """(bound ms, bound_by): each operand read once and each result written
+    once over the memory rate; the products the kept pairs need, those
+    with both operands of the inputs' type at that type's rate (bf16
+    tensor cores, or f32) and those with an f32 operand (P, dS) at the f32
+    rate; the larger of the two times."""
+    B, T, S, H, Hkv, Dk, Dv, window, q_offset = shape
+    pairs = B * H * kept_pairs(T, S, window, q_offset)
+    qkv = (B * T * H * Dk + B * S * Hkv * (Dk + Dv)) * elem
+    o_lse = B * T * H * (Dv + 1) * 4
+    if backward:  # S and dP again; dV, dQ and dK with P or dS
+        low, f32 = 2 * pairs * (Dk + Dv), 2 * pairs * (2 * Dk + Dv)
+        nbytes = 2 * qkv + o_lse + B * T * H * Dv * elem
+    else:  # S = Q K^T; P V
+        low, f32 = 2 * pairs * Dk, 2 * pairs * Dv
+        nbytes = qkv + o_lse
+    t_ops = (low / (BF16_TFLOPS if elem == 2 else F32_FLOPS) + f32 / F32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def long_context(torch, by_path, smi, kernels):
+    """Phase 13: (a) the main path at train_4k's length through
+    ``train.run`` (full olmo-1b, ``LONG_ARGV``), with the attention kernels'
+    launches against what the path implies (remat recompute included) and
+    ``block_select``'s as in phase 4, then one cluster's loss forward and
+    backward at that shape with ``remat`` off and on; (b) the serving twin
+    at prefill_32k's length for ``PREFILL_ARCHS`` and decode == forward in
+    f32 at 2 layers (``LONG_CACHE_RUNS``); (c) the attention kernels against
+    their plain versions at ``ATTN_SHAPES`` in f32 and bf16, and both timed
+    at olmo's train_4k and prefill_32k shapes beside their bounds and SDPA
+    on f32 copies. Adds each run's launches to ``by_path`` and each timing
+    to ``kernels``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as FA
+    from repro_torch.kernels.fused_sync import kernel as FK
+    from repro_torch.launch import serve_batched, train
+    from repro_torch.launch.steps import make_loss_fn
+    from repro_torch.models.transformer import decode_step, forward, init_model, prefill
+    from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+
+    dev = torch.device("cuda")
+    t13 = time.perf_counter()
+    limit = PEAK_LIMIT_GB * 1e9
+    counted = dict(attn_kernels(), block_select=FK.block_select)
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counted.items()}
+
+    # 13a. the main path at train_4k's length
+    cfg = get_config("olmo-1b")
+    identical = []
+
+    def on_sync(i, state, seconds):
+        identical.append(all(torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
+                             for n in range(1, P.shape[0])))
+
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    out = train.run(train.parse_args(LONG_ARGV), on_sync=on_sync)
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    syncs = LONG_STEPS // PERIOD
+    want = train_attn_want(LONG_ARGV)
+    want["block_select"] = (N_CLUSTERS + 1) * syncs
+    emit({"phase": "long_train", "arch": cfg.name, "layers": cfg.num_layers,
+          "seq": LONG_SEQ, "argv": LONG_ARGV, "losses": out["hist"],
+          "eval_loss": out["eval_loss"],
+          "steady_s_per_step": out["timing"]["steady_s_per_step"],
+          "first_step_s": out["timing"]["compile_s"],
+          "sync_ms": [1e3 * s for s in out["sync_s"]],
+          "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+          "launches_want": want, "rows_identical_after_sync": identical, "card": smi})
+    by_path[f"olmo-1b seq {LONG_SEQ} fused"] = launches
+    if launches != want:
+        raise AssertionError(f"long train: launches {launches}, want {want}")
+    if not (len(identical) == syncs and all(identical)):
+        raise AssertionError("long train: cluster rows differ after a sync")
+    if not (math.isfinite(out["eval_loss"]) and all(math.isfinite(l) for l in out["hist"])):
+        raise AssertionError("long train: non-finite loss")
+    if peak >= limit:
+        raise AssertionError(f"long train: peak {peak / 1e9:.2f} GB")
+    del out
+    free(torch)
+
+    # one cluster's loss forward and backward at [2, LONG_SEQ], remat off and on
+    params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, LONG_SEQ),
+                         generator=torch.Generator().manual_seed(11)).to(dev)
+    leaves, treedef = tree_flatten(params)
+    remat_runs = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        req = [l.detach().requires_grad_(True) for l in leaves]
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero()
+        t0 = time.perf_counter()
+        loss, _ = make_loss_fn(c)(tree_unflatten(treedef, req), {"tokens": toks})
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+        launches = read()
+        sec = time.perf_counter() - t0
+        remat_runs[remat] = dict(
+            loss=float(loss.detach()), seconds=sec, launches=launches,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            peak_above_params_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        if remat:
+            remat_runs[True]["grads_bitwise_equal"] = all(
+                (a is None and b is None) or torch.equal(a, b)
+                for a, b in zip(grads_off, grads))
+        else:
+            grads_off = grads
+        del loss, grads, req
+    del grads_off
+    emit({"phase": "long_remat", "arch": cfg.name, "tokens": [2, LONG_SEQ],
+          "remat_off": remat_runs[False], "remat_on": remat_runs[True], "card": smi})
+    L = cfg.num_layers
+    if (remat_runs[False]["launches"]["flash_attn_fwd"] != L
+            or remat_runs[True]["launches"]["flash_attn_fwd"] != 2 * L
+            or any(r["launches"]["flash_attn_bwd"] != L for r in remat_runs.values())):
+        raise AssertionError(f"long remat: launches {remat_runs}")
+    if remat_runs[False]["loss"] != remat_runs[True]["loss"]:
+        raise AssertionError("long remat: the loss changed with remat")
+    if not remat_runs[True]["grads_bitwise_equal"]:
+        raise AssertionError("long remat: the gradients changed with remat")
+    if not remat_runs[True]["peak_gb"] < remat_runs[False]["peak_gb"]:
+        raise AssertionError("long remat: remat did not lower the peak")
+    del params, leaves
+    free(torch)
+
+    # 13b. prefill at prefill_32k's length, then decode
+    for arch in PREFILL_ARCHS:
+        free(torch)
+        zero()
+        out = serve_batched.run(arch, batch=PREFILL_BATCH, prompt_len=PREFILL_LEN,
+                                new_tokens=PREFILL_NEW, device="cuda", full=True)
+        launches = read()
+        acfg = get_config(arch)
+        finite = bool(torch.isfinite(out["logits"][..., :acfg.vocab_size].float()).all())
+        emit({"phase": "long_prefill", "arch": arch, "layers": out["layers"],
+              "batch": PREFILL_BATCH, "prompt": PREFILL_LEN, "new_tokens": PREFILL_NEW,
+              "window": acfg.sliding_window, "prefill_s": out["prefill_s"],
+              "decode_ms_per_step": out["decode_ms_per_step"],
+              "finite_logits": finite, "peak_gb": out["peak_gb"],
+              "launches": launches, "card": smi})
+        by_path[f"{arch} prefill {PREFILL_LEN}"] = launches
+        if launches["flash_attn_fwd"] != acfg.num_layers or launches["flash_attn_bwd"]:
+            raise AssertionError(f"prefill {arch}: launches {launches}")
+        if not finite or tuple(out["tokens"].shape) != (PREFILL_BATCH, PREFILL_NEW):
+            raise AssertionError(f"prefill {arch}: non-finite logits or bad tokens")
+        if out["peak_gb"] * 1e9 >= limit:
+            raise AssertionError(f"prefill {arch}: peak {out['peak_gb']:.1f} GB")
+        del out
+
+    for arch, T in LONG_CACHE_RUNS.items():
+        c = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
+        if c.num_experts:  # as phase 9b: no token dropped by the routing
+            c = dataclasses.replace(c, capacity_factor=max(
+                8.0, c.num_experts / c.experts_per_token))
+        V = c.vocab_size
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(torch.Generator(device=dev).manual_seed(0), c, device=dev)
+        toks = torch.randint(0, V, (1, T + 1),
+                             generator=torch.Generator().manual_seed(12)).to(dev)
+        with torch.no_grad():
+            full, _ = forward(params, toks, c)
+            _, cache = prefill(params, toks[:, :T], c, max_len=T + 1)
+            dl, cache = decode_step(params, cache, toks[:, T:], c)
+        got, want_l = dl[:, 0, :V], full[:, T, :V]
+        err = float((got - want_l).abs().max())
+        ok = bool(torch.allclose(got, want_l, rtol=CACHE_TOL, atol=CACHE_TOL))
+        torch.cuda.synchronize()
+        emit({"phase": "long_cache", "arch": arch, "layers": 2, "prompt": T,
+              "decoded": 1, "total": T + 1, "dtype": "float32",
+              "window": c.sliding_window, "cache_slots": cache["slot_pos"].shape[1],
+              "max_abs_err": err, "tol": CACHE_TOL,
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
+        if not ok:
+            raise AssertionError(f"long cache {arch}: decode differs from forward by {err}")
+        del params, full, cache, dl
+
+    # 13c. the kernels against their plain versions
+    gen = torch.Generator(device=dev).manual_seed(13)
+    checks = {}
+
+    def compare(got, want, kind, bf16):
+        """max |diff|, and the worst diff over its allowance: f32 at
+        ATTN_TOL; bf16 one bf16 ulp of the larger value (or the f32 atol
+        where that is larger: values near 0 that cancellation leaves)."""
+        rtol, atol = ATTN_TOL[kind]
+        g, w = got.float(), want.float()
+        d = (g - w).abs()
+        if bf16:
+            big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+            allow = torch.exp2(torch.floor(torch.log2(big)) - 7).clamp_min(atol)
+        else:
+            allow = atol + rtol * w.abs()
+        return float(d.max()), float((d / allow).max())
+
+    for name, shape in ATTN_SHAPES.items():
+        B, T, S, H, Hkv, Dk, Dv, window, q_offset = shape
+        kw = dict(q_offset=q_offset, window=window)
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            q = torch.randn(B, T, H, Dk, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, S, Hkv, Dk, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, S, Hkv, Dv, generator=gen, device=dev).to(dt)
+            do = torch.randn(B, T, H, Dv, generator=gen, device=dev).to(dt)
+            o32, lse = FA.flash_attn_fwd(q, k, v, **kw)
+            po, plse = FA.flash_attn_fwd_plain(q, k, v, **kw)
+            res = {"out": compare(o32.to(dt), po.to(dt), "fwd", bf16),
+                   "lse": compare(lse, plse, "fwd", False)}
+            grads = pgrads = ()
+            if name not in ATTN_FORWARD_ONLY:
+                grads = FA.flash_attn_bwd(q, k, v, o32, lse, do, **kw)
+                pgrads = FA.flash_attn_bwd_plain(q, k, v, po, plse, do, **kw)
+            for gname, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
+                res[gname] = compare(a, b, "grad", bf16)
+            torch.cuda.synchronize()
+            checks[f"{name} {'bf16' if bf16 else 'f32'}"] = res
+            emit({"check": "flash_attn", "shape": name, "dims": shape,
+                  "dtype": str(dt).split(".")[-1],
+                  "backward": name not in ATTN_FORWARD_ONLY,
+                  "max_abs_err": {k2: r[0] for k2, r in res.items()},
+                  "worst_over_allowance": {k2: r[1] for k2, r in res.items()}})
+            bad = {k2: r for k2, r in res.items() if not r[1] <= 1.0}
+            if bad:
+                raise AssertionError(f"flash_attn {name} {dt}: kernel and plain "
+                                     f"version differ beyond the tolerance: {bad}")
+            del q, k, v, do, o32, lse, po, plse, grads, pgrads
+    free(torch)
+
+    # timings at olmo's train_4k and prefill_32k shapes, bf16
+    import torch.nn.functional as Fn
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for tag, reps, plain in (("olmo-1b train_4k", 5, True),
+                             ("olmo-1b prefill_32k", 1, False)):
+        shape = ATTN_SHAPES[tag]
+        B, T, S, H, Hkv, Dk, Dv, window, q_offset = shape
+        q = torch.randn(B, T, H, Dk, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, S, Hkv, Dk, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, Hkv, Dv, generator=gen, device=dev).to(torch.bfloat16)
+        do = torch.randn(B, T, H, Dv, generator=gen, device=dev).to(torch.bfloat16)
+        o32, lse = FA.flash_attn_fwd(q, k, v)
+        fwd_ms = cuda_ms(torch, lambda: FA.flash_attn_fwd(q, k, v), reps)
+        bwd_ms = cuda_ms(torch, lambda: FA.flash_attn_bwd(q, k, v, o32, lse, do), reps)
+        plain_fwd = plain_bwd = None
+        if plain:
+            plain_fwd = cuda_ms(torch, lambda: FA.flash_attn_fwd_plain(q, k, v), 1)
+            plain_bwd = cuda_ms(torch, lambda: FA.flash_attn_bwd_plain(
+                q, k, v, o32, lse, do), 1)
+        # SDPA on f32 copies ([B, H, T, D]), timed and used nowhere in the port
+        qf, kf, vf = (t.float().transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dof = do.float().transpose(1, 2).contiguous()
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            sdpa = lambda: Fn.scaled_dot_product_attention(qf, kf, vf, is_causal=True)
+            lib_fwd = cuda_ms(torch, sdpa, reps)
+            so = sdpa()
+            lib_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                so, (qf, kf, vf), dof, retain_graph=True), reps)
+        del so, qf, kf, vf, dof
+        for name, ms, plain_ms, lib_ms, bwd in (
+                ("flash_attn_fwd", fwd_ms, plain_fwd, lib_fwd, False),
+                ("flash_attn_bwd", bwd_ms, plain_bwd, lib_bwd, True)):
+            b_ms, by = attn_bound(shape, 2, bwd)
+            kernels.setdefault(name, {})[tag] = entry = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
+                max_abs_err=max(r[0] for kk, r in checks[f"{tag} bf16"].items()
+                                if (kk in ("dq", "dk", "dv")) == bwd),
+                dims=shape, dtype="bfloat16", library="SDPA efficient, f32 copies")
+            emit({"timing": name, "shape": tag, **entry})
+        del q, k, v, do, o32, lse
+        free(torch)
+    emit({"phase": "long_context_done", "seconds": time.perf_counter() - t13})
 
 
 def main(argv):
@@ -1958,6 +2405,7 @@ def main(argv):
     counters = {"block_select": FK.block_select, "update_max": DK.update_max,
                 "tail_hist": DK.tail_hist, "apply_mask": DK.apply_mask,
                 "bitpack": BK.bitpack}
+    attn_counters = attn_kernels()
     path_kernels = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
     by_path = {}  # path -> {kernel: launches in that path's run}
     syncs = STEPS // PERIOD
@@ -1972,7 +2420,7 @@ def main(argv):
         free(torch)
         torch.cuda.reset_peak_memory_stats()
         fin0, fb0 = fops.select_topk_rows.finished, fops.select_topk_rows.fallbacks
-        for fn in counters.values():
+        for fn in (*counters.values(), *attn_counters.values()):
             fn.launches = 0
         args = train.parse_args(MAIN_ARGV + ["--omega-impl", impl])
         if profile_dir is not None:
@@ -1981,7 +2429,7 @@ def main(argv):
         else:
             out = train.run(args, on_sync=on_sync)
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = {k: fn.launches for k, fn in {**counters, **attn_counters}.items()}
         peak = torch.cuda.max_memory_allocated()
         # which selections the block_select candidates answered, and which
         # the exact fallback answered after the kernel ran
@@ -2003,6 +2451,10 @@ def main(argv):
             if launches[name] != want:
                 raise AssertionError(f"{impl}: {name} launched {launches[name]} "
                                      f"times, want {want}")
+        want_attn = train_attn_want(MAIN_ARGV + ["--omega-impl", impl])
+        if {k: launches[k] for k in want_attn} != want_attn:
+            raise AssertionError(f"{impl}: attention launches {launches}, "
+                                 f"want {want_attn}")
         by_path[f"olmo-1b {impl}"] = launches
         if not (len(identical) == syncs and all(identical)):
             raise AssertionError(f"{impl}: cluster rows differ after a sync")
@@ -2919,6 +3371,9 @@ def main(argv):
     # ---- 12. checkpoints and the dry-run (before the summary, which is last)
     checkpoint_and_dryrun(torch, counters, by_path, smi)
 
+    # ---- 13. long context: train_4k's and prefill_32k's lengths -----------
+    long_context(torch, by_path, smi, kernels)
+
     # ---- 11. kernel summary -------------------------------------------------
     meta = {
         "block_select": ("src/repro_torch/csrc/fused_sync.cu",
@@ -2931,16 +3386,22 @@ def main(argv):
                        "src/repro/kernels/dgc/kernel.py:119"),
         "bitpack": ("src/repro_torch/csrc/bitpack.cu",
                     "src/repro/kernels/bitpack/kernel.py:43"),
+        # not TPU kernels: the reference's plain-jnp flash_attention
+        "flash_attn_fwd": ("src/repro_torch/csrc/flash_attn.cu",
+                           "src/repro/models/attention.py:23"),
+        "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
+                           "src/repro/models/attention.py:23"),
     }
     # the headline numbers at the shape of the path each kernel came with;
     # every shape timed under "shapes"
     first_shape = {"block_select": "olmo-1b", "update_max": "olmo-1b",
                    "tail_hist": "olmo-1b", "apply_mask": "resnet18",
-                   "bitpack": "resnet18"}
+                   "bitpack": "resnet18", "flash_attn_fwd": "olmo-1b train_4k",
+                   "flash_attn_bwd": "olmo-1b train_4k"}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name][first_shape[name]]
-        per_path = {p: c[name] for p, c in by_path.items() if c[name]}
+        per_path = {p: c[name] for p, c in by_path.items() if c.get(name)}
         if not per_path:
             raise AssertionError(f"{name} was launched on no path")
         rows.append({"name": name, "route": "cuda", "source": source,

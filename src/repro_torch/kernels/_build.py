@@ -45,6 +45,9 @@ SIGNATURES = {
     "rt_apply_mask": [P, P, P, LL, P, P, P, P],
     "rt_bitpack": [P, LL, P, P, P],
     "rt_bitpack_active_clusters": [P],
+    "rt_flash_attn_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, LL, I, F, I, P],
+    "rt_flash_attn_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL,
+                          I, F, I, P],
 }
 
 
@@ -142,20 +145,28 @@ def check(rc: int, what: str) -> None:
                            f"cudaError {rc}")
 
 
-# observers of the hand-written kernels' launches (``launch.op_cost``):
-# each is called with the kernel's name and its operand and result bytes
+# observers of the hand-written kernels' work (``launch.op_cost``): each
+# is called with the kernel's name, its operand and result bytes and the
+# flops it reports
 launch_observers: list = []
 
 
-def count_launch(fn, *tensors) -> None:
-    """One launch of wrapper ``fn``'s kernel: add one to ``fn.launches``
-    and pass the bytes of ``tensors`` (the launch's operands and results)
-    to every observer."""
-    fn.launches += 1
+def report_cost(fn, *tensors, flops: float = 0.0) -> None:
+    """Pass the bytes of ``tensors`` (a call's operands and results) and
+    ``flops`` of wrapper ``fn``'s kernel to every observer. A wrapper
+    given ``meta`` tensors reports what its kernel would do, launching
+    nothing."""
     if launch_observers:
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
         for observe in launch_observers:
-            observe(fn.__name__, nbytes)
+            observe(fn.__name__, nbytes, float(flops))
+
+
+def count_launch(fn, *tensors, flops: float = 0.0) -> None:
+    """One launch of wrapper ``fn``'s kernel: add one to ``fn.launches``
+    and report its cost (``report_cost``)."""
+    fn.launches += 1
+    report_cost(fn, *tensors, flops=flops)
 
 
 def require(cond: bool, what: str) -> None:

@@ -12,7 +12,9 @@ count means kept as close to ``hlo_cost``'s as eager PyTorch allows:
     numel(result) · contracted size per ``dot``; elementwise work is not
     counted by either. ``FlopCounterMode`` itself is not used: it
     decomposes the ops it has no formula for (``silu_backward``), which
-    changes their rounding and so the run.
+    changes their rounding and so the run. A hand-written kernel
+    dispatches no op: it reports its own dot flops
+    (``kernels._build.report_cost``), on the card and on ``meta``.
   * ``hbm_bytes``: the operand and result bytes of every dispatched aten
     op that does work (views and allocations move nothing), plus each
     hand-written kernel launch's operands and results
@@ -35,6 +37,8 @@ train CLI (``--obs-hlo-cost``) counts the first real ``train_step`` and
 state.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -86,19 +90,36 @@ def _device_kernels(prof) -> int:
                and not e.name.startswith(("Memcpy", "Memset")))
 
 
+@contextlib.contextmanager
+def _observed():
+    """While the block runs, sum what the hand-written kernels report
+    (``kernels._build.report_cost``) and keep the bytes of each
+    ``launch.mesh.all_gather`` -> a dict of ``nbytes``, ``flops`` and the
+    list ``gathers``."""
+    seen = {"nbytes": 0, "flops": 0.0, "gathers": []}
+
+    def observe(name, nbytes, flops):
+        seen["nbytes"] += nbytes
+        seen["flops"] += flops
+
+    observe_gather = lambda axis, nbytes: seen["gathers"].append(nbytes)
+    _build.launch_observers.append(observe)
+    _mesh.gather_observers.append(observe_gather)
+    try:
+        yield seen
+    finally:
+        _build.launch_observers.remove(observe)
+        _mesh.gather_observers.remove(observe_gather)
+
+
 def op_costs(fn, *args, **kwargs):
     """Run ``fn(*args, **kwargs)`` once under the counters -> ``(result,
     {"flops", "hbm_bytes", "collective_bytes", "launches"})``; on the
     card the device is waited on before and after the call."""
-    kernel_bytes, gathered = [], []
-    observe = lambda name, nbytes: kernel_bytes.append(nbytes)
-    observe_gather = lambda axis, nbytes: gathered.append(nbytes)
     on_card = any(isinstance(t, torch.Tensor) and t.is_cuda
                   for t in _pytree_leaves((args, kwargs)))
     counter = _OpCounter()
-    _build.launch_observers.append(observe)
-    _mesh.gather_observers.append(observe_gather)
-    try:
+    with _observed() as seen:
         if on_card:
             from torch.profiler import ProfilerActivity, profile
 
@@ -112,12 +133,10 @@ def op_costs(fn, *args, **kwargs):
             with counter:
                 out = fn(*args, **kwargs)
             launches = counter.ops
-    finally:
-        _build.launch_observers.remove(observe)
-        _mesh.gather_observers.remove(observe_gather)
-    return out, {"flops": float(counter.flops),
-                 "hbm_bytes": float(counter.nbytes + sum(kernel_bytes)),
-                 "collective_bytes": float(sum(gathered)), "launches": int(launches)}
+    return out, {"flops": float(counter.flops + seen["flops"]),
+                 "hbm_bytes": float(counter.nbytes + seen["nbytes"]),
+                 "collective_bytes": float(sum(seen["gathers"])),
+                 "launches": int(launches)}
 
 
 def collectives(fn, *args, **kwargs) -> dict:
@@ -125,13 +144,9 @@ def collectives(fn, *args, **kwargs) -> dict:
     sent) and count its collectives -> ``{"all-gather": {"bytes": result
     bytes}}``, ``{}`` when it makes none (the reference's ``collectives``
     record)."""
-    gathered = []
-    observe = lambda axis, nbytes: gathered.append(nbytes)
-    _mesh.gather_observers.append(observe)
-    try:
+    with _observed() as seen:
         fn(*args, **kwargs)
-    finally:
-        _mesh.gather_observers.remove(observe)
+    gathered = seen["gathers"]
     return {"all-gather": {"bytes": int(sum(gathered))}} if gathered else {}
 
 
@@ -176,7 +191,7 @@ def step_costs(fn, *args):
     leaves = [l for a in args for l in jax_leaves(a)]
     tensors = [l for l in leaves if isinstance(l, torch.Tensor)]
     counter, reads = _OpCounter(), _Reads(tensors)
-    with counter, reads:
+    with _observed() as seen, counter, reads:
         out = fn(*args)
     returned = {id(t) for t in _pytree_leaves(out) if isinstance(t, torch.Tensor)}
     used, i = [], 0
@@ -186,7 +201,7 @@ def step_costs(fn, *args):
             i += 1
         else:
             used.append(True)
-    return float(counter.flops), used
+    return float(counter.flops + seen["flops"]), used
 
 
 class FirstCallCosts:

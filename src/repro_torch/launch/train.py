@@ -97,8 +97,13 @@ from repro_torch.launch.op_cost import FirstCallCosts
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models.frontends import fake_frontend_embeds
 from repro_torch.models.transformer import forward, init_model
-from repro_torch.obs import ObsConfig, RunLogger, StepClock, make_telemetry
+from repro_torch.obs import (
+    ObsConfig, RunLogger, StepClock, current_registry, make_telemetry, use_registry,
+)
 from repro_torch.optim import SGDM, warmup_step_decay
+
+EVAL_CHUNK_TOKENS = 8192  # the held-out eval's rows per forward: this many tokens
+
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
@@ -214,7 +219,14 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     (instrumentation hooks). Returns hist (mean loss per step; the active
     cluster's per async event), eval_loss, timing, the per-sync seconds
     and the simulator's trace and engine (None without ``--scenario``),
-    and ``telemetry``, the run's telemetry handle."""
+    and ``telemetry``, the run's telemetry handle, whose registry is the
+    ambient one (``obs.current_registry``) only while the run lasts: a
+    later run or test in the process does not emit into it."""
+    with use_registry(current_registry()):
+        return _run(args, on_sync, wrap_train_step, wrap_masked_step)
+
+
+def _run(args, on_sync, wrap_train_step, wrap_masked_step) -> dict:
     obs_cfg = None
     if (args.trace_viz or args.metrics_out or args.obs_heartbeat
             or args.obs_hlo_cost or args.obs_health):
@@ -425,10 +437,20 @@ def run(args, *, on_sync=None, wrap_train_step=None,
         sp = serving_params(state)
         toks = torch.from_numpy(lm.sample(32, args.seq, np.random.default_rng(99))
                                 ).to(dev, torch.int64)
-        logits, _ = forward(sp, toks, cfg,
-                            frontend_embeds=frontend(7, 32) if F else None)
-        lp = torch.log_softmax(logits[:, -args.seq:].float(), dim=-1)
-        eval_loss = float(-torch.gather(lp[:, :-1], -1, toks[:, 1:, None]).mean())
+        fe = frontend(7, 32) if F else None
+        # the 32 rows in chunks of at most EVAL_CHUNK_TOKENS tokens, so the
+        # f32 log-probs of a long sequence need not all be live at once
+        # (one chunk at the usual lengths: the same ops as one pass)
+        rows = max(1, EVAL_CHUNK_TOKENS // args.seq)
+        nll = []
+        for r in range(0, 32, rows):
+            logits, _ = forward(sp, toks[r:r + rows], cfg,
+                                frontend_embeds=None if fe is None else fe[r:r + rows])
+            lp = torch.log_softmax(logits[:, -args.seq:].float(), dim=-1)
+            del logits
+            nll.append(-torch.gather(lp[:, :-1], -1, toks[r:r + rows, 1:, None]))
+            del lp
+        eval_loss = float(torch.cat(nll).mean())
     if hist:
         log.log("eval",
                 f"[train] first-loss={hist[0]:.4f} last-loss={hist[-1]:.4f} "

@@ -1,13 +1,13 @@
 """Attention layers: GQA (+RoPE, sliding window) and MLA (DeepSeek-V2), the
 port of ``repro.models.attention``.
 
-The reference computes causal attention with a chunked online softmax in
-plain jnp (no Pallas kernel), all softmax math in f32. The port computes
-the same function directly: f32 scores, causal (optionally sliding-window)
-mask, f32 softmax, output cast back to the input dtype. Decode attends one
-query against a cache whose ``slot_pos`` records the absolute position
-each slot holds (-1 = empty). The decode functions write the new entry
-into the cache tensors in place and return them.
+Train and prefill attend through ``flash_attention``, the reference's
+chunked online softmax (all softmax math in f32), which on the card is a
+hand-written kernel (``kernels.flash_attn``): no [T, S] score matrix is
+kept, forward or backward. Decode attends one query against a cache whose
+``slot_pos`` records the absolute position each slot holds (-1 = empty).
+The decode functions write the new entry into the cache tensors in place
+and return them.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import math
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.kernels.flash_attn.ops import FlashAttention
 from repro_torch.models.common import (
     apply_norm, apply_rope, default_scale, dense_init, init_norm, rope_angles,
     torch_dtype,
@@ -24,21 +25,19 @@ from repro_torch.models.common import (
 NEG_INF = -1e30
 
 
-def causal_attention(q, k, v, *, window=0):
-    """q,k [B,T,H|Hkv,D]; v [B,T,Hkv,Dv] -> [B,T,H,Dv], scaled by 1/√D."""
-    B, T, H, D = q.shape
-    G = H // k.shape[2]
-    qf = q.float().transpose(1, 2)  # [B,H,T,D]
-    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
-    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
-    s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(D))
-    pos = torch.arange(T, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
-    if window:
-        mask &= pos[None, :] > (pos[:, None] - window)
-    s = s.masked_fill(~mask, NEG_INF)
-    out = torch.softmax(s, dim=-1) @ vf  # [B,H,T,D]
-    return out.transpose(1, 2).to(q.dtype)
+def flash_attention(q, k, v, *, q_offset=0, window=0, q_chunk=512, kv_chunk=512):
+    """Causal attention, the reference's ``flash_attention``. q [B,T,H,Dk];
+    k [B,S,Hkv,Dk]; v [B,S,Hkv,Dv] -> [B,T,H,Dv] in q's type.
+
+    ``window`` > 0 enables sliding-window masking (key kept iff
+    q_pos - window < k_pos <= q_pos). ``q_offset`` is the absolute position
+    of q[0] (k positions start at 0). q-head h reads kv-head h // (H / Hkv);
+    scores are scaled by 1/√Dk. v may be narrower than q and k (MLA): the
+    result equals the reference's pad-v-to-Dk-then-slice. Unlike the
+    reference, which asserts that the chunks divide T and S, a ragged T or
+    S is answered, its last tile short."""
+    return FlashAttention.apply(q, k, v, int(q_offset), int(window),
+                                int(q_chunk), int(kv_chunk))
 
 
 def init_gqa(gen, cfg, lead=(), device=None):
@@ -65,7 +64,7 @@ def gqa_forward(p, x, cfg, *, window=None):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     w = cfg.sliding_window if window is None else window
-    out = causal_attention(q, k, v, window=w)
+    out = flash_attention(q, k, v, window=w)
     return out.reshape(B, T, H * D) @ p["wo"]
 
 
@@ -163,9 +162,9 @@ def _mla_ckv(p, x, cfg, positions):
 
 
 def mla_forward(p, x, cfg):
-    """Train/prefill MLA: expand the latent to per-head k and v, then causal
+    """Train/prefill MLA: expand the latent to per-head k and v, then flash
     attention over q = [nope, rope] at the scale 1/√(dn + dr). v keeps its
-    own width (the reference pads it to dn + dr for its flash kernel and
+    own width (the reference pads it to dn + dr for its flash attention and
     slices the pad off again)."""
     B, T, _ = x.shape
     H = cfg.num_heads
@@ -177,7 +176,7 @@ def mla_forward(p, x, cfg):
     v = torch.einsum("btr,rhd->bthd", ckv, p["w_uv"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
-    out = causal_attention(q, k, v)
+    out = flash_attention(q, k, v)
     return out.reshape(B, T, H * dv) @ p["wo"]
 
 

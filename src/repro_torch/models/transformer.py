@@ -15,7 +15,10 @@ stands in for ``lax.scan``. A hybrid model is split into static segments
 block's KV cache exists only at its sites; its one parameter set serves
 every site, so autograd sums its gradient over them. ``embed`` is padded
 to ``padded_vocab`` and the padded logit columns are masked to -1e30.
-``cfg.remat`` is ignored: it changes memory, not values.
+``cfg.remat`` checkpoints each layer body (attention block, mamba block,
+the hybrid's shared block) where grad is enabled, as the reference's
+``jax.checkpoint`` of its scan bodies: autograd keeps each layer's input,
+and the backward runs the layer again. It changes memory, not values.
 
 Two behaviours of the reference's cache are kept as they are. ``prefill``
 without ``max_len`` sizes the cache to the prompt, so ``decode_step``
@@ -27,6 +30,7 @@ frontend tokens) is dropped, as jax's scatter drops an out-of-range index.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
@@ -181,19 +185,32 @@ def _logits(params, x, cfg):
     return logits
 
 
+def _remat(cfg, fn):
+    """``fn`` checkpointed when ``cfg.remat`` and grad are on: its inputs
+    are kept and its body runs again in the backward. The layers draw no
+    random numbers, so no RNG state is stashed."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
 def forward(params, tokens, cfg, *, frontend_embeds=None, groups=1):
     """tokens [B, T_text] int -> (logits [B, T, Vp], aux_loss scalar)."""
     x = _embed(params, tokens, cfg, frontend_embeds)
     aux = torch.zeros((), device=x.device)
     if cfg.arch_type in ("ssm", "hybrid"):
+        mamba = _remat(cfg, lambda p, h: _apply_mamba_block(p, h, cfg))
+        shared = _remat(cfg, lambda p, h: _apply_shared_block(p, h, cfg))
         for has_attn, start, ln in _segments(cfg):
             if has_attn:
-                x = _apply_shared_block(params["shared"], x, cfg)
+                x = shared(params["shared"], x)
             for i in range(start, start + ln):
-                x = _apply_mamba_block(_layer(params["blocks"], i), x, cfg)
+                x = mamba(_layer(params["blocks"], i), x)
     else:
+        block = _remat(cfg, lambda p, h: _apply_attn_block(p, h, cfg, groups))
         for i in range(cfg.num_layers):
-            x, ai = _apply_attn_block(_layer(params["blocks"], i), x, cfg, groups)
+            x, ai = block(_layer(params["blocks"], i), x)
             if ai is not None:
                 aux = aux + ai
         aux = aux / max(cfg.num_layers, 1)

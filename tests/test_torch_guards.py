@@ -436,3 +436,61 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          env={"PATH": "/usr/bin:/bin"})
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_attention_wrapper_launches_its_kernel_for_cuda_tensors(monkeypatch):
+    """``flash_attention`` and the backward's wrapper on CUDA tensors (fake
+    ones: no card here) go to the kernels' C entries, stubbed, with the
+    problem's sizes, and count one launch each call; a failed launch or a
+    library that cannot be built raises: nothing falls back to the plain
+    version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn import kernel as FA
+    from repro_torch.models.attention import flash_attention
+
+    calls, rc = [], [0]
+
+    class Stub:
+        def rt_flash_attn_fwd(self, *args):
+            calls.append(("fwd", args[5:-1]))
+            return rc[0]
+
+        def rt_flash_attn_bwd(self, *args):
+            calls.append(("bwd", args[10:-1]))
+            return rc[0]
+
+    monkeypatch.setattr(_build, "library", Stub)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    fwd0, bwd0 = FA.flash_attn_fwd.launches, FA.flash_attn_bwd.launches
+
+    def attend(dtype=torch.bfloat16):
+        with FakeTensorMode():
+            q = torch.empty(2, 64, 4, 24, device="cuda", dtype=dtype)
+            k = torch.empty(2, 64, 2, 24, device="cuda", dtype=dtype)
+            v = torch.empty(2, 64, 2, 16, device="cuda", dtype=dtype)
+            out = flash_attention(q, k, v, window=8)
+            o32, lse = FA.flash_attn_fwd(q, k, v, window=8)
+            grads = FA.flash_attn_bwd(q, k, v, o32, lse, torch.empty_like(out), window=8)
+            return out, grads
+
+    out, grads = attend()
+    assert out.shape == (2, 64, 4, 16) and out.dtype == torch.bfloat16
+    assert [g.shape for g in grads] == [(2, 64, 4, 24), (2, 64, 2, 24), (2, 64, 2, 16)]
+    scale = 1.0 / np.sqrt(24)
+    sizes = (2, 64, 64, 4, 2, 24, 16, 0, 8)
+    assert [c[0] for c in calls] == ["fwd", "fwd", "bwd"]
+    for _, args in calls:
+        assert args[:9] == sizes and args[9] == pytest.approx(scale) and args[10] == 1
+    assert (FA.flash_attn_fwd.launches, FA.flash_attn_bwd.launches) == (fwd0 + 2, bwd0 + 1)
+    rc[0] = 719  # cudaErrorLaunchFailure
+    with pytest.raises(RuntimeError, match="flash_attn_fwd failed to launch"):
+        attend(torch.float32)
+
+    def unbuildable():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "library", unbuildable)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        attend()

@@ -562,14 +562,14 @@ def test_async_collect_stats_tracks_cluster_signals():
 def test_program_costs_flops_match_the_reference_and_leave_the_run_alone():
     """``program_costs`` of the narrow olmo's train step counts 2·M·N·K per
     matrix product, as the reference's HLO walk counts 2·numel·K per dot.
-    The reference's config rematerializes each layer (``remat=True``): its
-    backward re-runs the layers' forward products, which the port's eager
-    autograd keeps, so the reference is costed with ``remat=False`` (with
-    remat the port counts 0.79 of it). Then the two count the same
-    products but one: XLA's program holds one more [64 x 64 x 64] product
-    per cluster, 1.4 % of the total, hence rel 0.02. The counted call is a
-    real step: its state is bitwise that of an uncounted step from the
-    same init."""
+    Both are costed with ``remat=False`` here (each layer's forward
+    products once; ``test_program_costs_count_remat_like_the_reference``
+    holds the two with remat on). Then the two count the same products
+    but the attention backward's P·V recompute, which the port's plain
+    version skips (five of the reference's six products per tile):
+    measured 0.993 of the reference's count, hence rel 0.02. The counted
+    call is a real step: its state is bitwise that of an uncounted step
+    from the same init."""
     from repro.configs import get_config as j_get
     from repro.launch.steps import make_loss_fn as j_loss
     from repro.models.transformer import init_model as j_init
@@ -581,7 +581,7 @@ def test_program_costs_flops_match_the_reference_and_leave_the_run_alone():
     narrow = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
                   head_dim=16, d_ff=128, vocab_size=128)
     jcfg = dataclasses.replace(j_get("olmo-1b").reduced(), remat=False, **narrow)
-    tcfg = dataclasses.replace(t_get("olmo-1b").reduced(), **narrow)
+    tcfg = dataclasses.replace(t_get("olmo-1b").reduced(), remat=False, **narrow)
     jh = JHFL(tiers=j_parse("2x2:H=2"))
     th = THFL(tiers=t_parse("2x2:H=2"))
     jopt, topt = JSGDM(momentum=0.9), TSGDM(momentum=0.9)
@@ -610,3 +610,38 @@ def test_program_costs_flops_match_the_reference_and_leave_the_run_alone():
     _, again = op_costs(ttrain, plain, tb)
     assert again["flops"] == tc["flops"]  # the count is the step's, not the run's
     assert T.program_costs(ttrain, plain, tb)["flops"] == tc["flops"]
+
+
+def test_program_costs_count_remat_like_the_reference():
+    """With ``remat=True`` (the configs' default) both backwards run each
+    layer's forward again: the port's checkpointed layers and the
+    reference's ``jax.checkpoint`` scan bodies. The two counts then agree
+    as without remat (measured 0.994; rel 0.02 as there), and each
+    exceeds its own count without remat."""
+    from repro.configs import get_config as j_get
+    from repro.launch.steps import make_loss_fn as j_loss
+    from repro.models.transformer import init_model as j_init
+    from repro_torch.configs import get_config as t_get
+    from repro_torch.launch.op_cost import op_costs
+    from repro_torch.launch.steps import make_loss_fn as t_loss
+    from repro_torch.utils.convert import state_from_numpy
+
+    narrow = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+                  head_dim=16, d_ff=128, vocab_size=128)
+    toks = np.random.default_rng(0).integers(0, 128, (2, 4, 16))
+    jh = JHFL(tiers=j_parse("2x2:H=2"))
+    jopt, topt = JSGDM(momentum=0.9), TSGDM(momentum=0.9)
+    counts = {}
+    for remat in (False, True):
+        jcfg = dataclasses.replace(j_get("olmo-1b").reduced(), remat=remat, **narrow)
+        tcfg = dataclasses.replace(t_get("olmo-1b").reduced(), remat=remat, **narrow)
+        jstate = jhfl.hfl_init(j_init(jax.random.PRNGKey(0), jcfg), jopt, jh)
+        jtrain = jax.jit(jhfl.make_cluster_train_step(j_loss(jcfg), jopt,
+                                                      lambda t: 0.1))
+        jc = J.program_costs(jtrain, jstate, {"tokens": jnp.asarray(toks)})
+        ttrain = thfl.make_cluster_train_step(t_loss(tcfg), topt, lambda t: 0.1)
+        tstate = state_from_numpy(jax.tree.map(np.array, jstate), "cpu")
+        _, tc = op_costs(ttrain, tstate, {"tokens": torch.from_numpy(toks)})
+        counts[remat] = (jc["flops"], tc["flops"])
+    assert counts[True][1] / counts[True][0] == pytest.approx(1.0, rel=0.02)
+    assert counts[True][0] > counts[False][0] and counts[True][1] > counts[False][1]
