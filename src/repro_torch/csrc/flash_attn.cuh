@@ -1,5 +1,7 @@
 // Shared pieces of the attention kernels (flash_attn.cu, flash_attn_bwd.cu):
-// the problem's shape, tile loads, the two tile products and the mask.
+// the problem's shape, the mask and the key-tile range; and for the f32
+// (CUDA-core) kernels the tile loads and the two tile products. The bf16
+// (tensor-core) kernels take theirs from flash_attn_sm90.cuh.
 //
 // Layouts (all contiguous): q [B,T,H,Dk], k [B,S,Hkv,Dk], v [B,S,Hkv,Dv],
 // o32 [B,T,H,Dv] f32, lse and delta [B,H,T] f32; gradients in the layouts of
@@ -7,19 +9,18 @@
 // [Hkv, G] reshape. Positions: q_pos = q_offset + t, k_pos = s; a key is kept
 // iff k_pos <= q_pos and (window == 0 or k_pos > q_pos - window).
 //
-// A block has kThreads = 128 threads: 16 row groups (ty) x 8 column groups
-// (tx). A score tile is [16 * RM rows] x [kCols = 64 columns]; thread (ty,
-// tx) owns rows ty*RM + i and columns tx + 8j (j < 8). A product into a row
-// of width DB (a head dimension rounded up to a bucket) gives the thread
-// the columns tx*4 + 32j + e (e < 4). Every operand tile sits in shared
-// memory as f32, row-major with a row stride of DB + 4 floats (== 4 mod 32
-// words): the 8 threads of a quarter-warp then read 8 different rows of the
-// column operand with 16-B loads over all 32 banks, and the row operand as
-// one broadcast. Columns D..DB-1 of a tile and rows past the data are
-// zero-filled, so the products need no bounds inside their loops.
+// The f32 kernels: a block has kThreads = 128 threads: 16 row groups (ty) x
+// 8 column groups (tx). A score tile is [16 * RM rows] x [kCols = 64
+// columns]; thread (ty, tx) owns rows ty*RM + i and columns tx + 8j (j < 8).
+// A product into a row of width DB (a head dimension rounded up to a bucket)
+// gives the thread the columns tx*4 + 32j + e (e < 4). Every operand tile
+// sits in shared memory as f32, row-major with a row stride of DB + 4 floats
+// (== 4 mod 32 words): the 8 threads of a quarter-warp then read 8 different
+// rows of the column operand with 16-B loads over all 32 banks, and the row
+// operand as one broadcast. Columns D..DB-1 of a tile and rows past the data
+// are zero-filled, so the products need no bounds inside their loops.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace flash_attn {
@@ -37,31 +38,19 @@ struct Shape {
   float scale;  // 1/sqrt(Dk) rounded to f32, as the reference's f32 product
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <class T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ bool kept(long long qpos, long long kpos, int window) {
   return kpos <= qpos && (window == 0 || kpos > qpos - window);
 }
 
 // rows [0, nrows) of a tile from global rows g + r * row_stride, of which
 // the first `valid` exist; columns [0, D) of DB, the rest zero
-template <int DB, class T>
-__device__ __forceinline__ void load_tile(float* sm, const T* g, long long row_stride,
+template <int DB>
+__device__ __forceinline__ void load_tile(float* sm, const float* g, long long row_stride,
                                           int nrows, int valid, int D) {
   for (int idx = threadIdx.x; idx < nrows * DB; idx += kThreads) {
     const int r = idx / DB, d = idx - r * DB;
     float x = 0.f;
-    if (r < valid && d < D) x = to_f(g[r * row_stride + d]);
+    if (r < valid && d < D) x = g[r * row_stride + d];
     sm[r * (DB + kPad) + d] = x;
   }
 }
@@ -143,19 +132,19 @@ __device__ __forceinline__ float group_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-// the key tiles [kt_beg, kt_end) that rows with positions [qlo, qhi] can
-// keep: a tile outside holds no kept key for any of them
+// the key tiles [kt_beg, kt_end) of `cols` keys that rows with positions
+// [qlo, qhi] can keep: a tile outside holds no kept key for any of them
 __device__ __forceinline__ void key_tiles(const Shape& sh, long long qlo, long long qhi,
-                                          int& kt_beg, int& kt_end) {
+                                          int& kt_beg, int& kt_end, int cols = kCols) {
   const long long s_end = qhi + 1 < sh.S ? qhi + 1 : sh.S;
   long long s_beg = 0;
   if (sh.window && qlo - sh.window + 1 > 0) s_beg = qlo - sh.window + 1;
-  kt_beg = static_cast<int>(s_beg / kCols);
-  kt_end = s_end > s_beg ? static_cast<int>((s_end + kCols - 1) / kCols) : kt_beg;
+  kt_beg = static_cast<int>(s_beg / cols);
+  kt_end = s_end > s_beg ? static_cast<int>((s_end + cols - 1) / cols) : kt_beg;
 }
 
-// head-dimension bucket of a (Dk, Dv) pair: the row width the kernels are
-// instantiated for; 0 when the pair is too wide
+// head-dimension bucket of a (Dk, Dv) pair: the row width the f32 kernels
+// are instantiated for; 0 when the pair is too wide
 inline int bucket(int Dk, int Dv) {
   const int d = Dk > Dv ? Dk : Dv;
   return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : d <= 256 ? 256 : 0;

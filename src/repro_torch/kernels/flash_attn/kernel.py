@@ -5,10 +5,16 @@ Not a TPU kernel: they replace the reference's plain-jnp
 ``flash_attention`` (``src/repro/models/attention.py:23``), with
 ``csrc/flash_attn.cu`` (the forward) and ``csrc/flash_attn_bwd.cu`` (dQ,
 then dK/dV, two kernels without atomics). What bounds them on the H100
-and what the design does about it is written at the head of each source:
-f32 operations on the CUDA cores, one CTA per (q tile, head), key tiles
-streamed through shared memory, the online softmax in registers, tiles the
-mask empties skipped.
+and what the design does about it is written at the head of each source.
+bf16 inputs (the paths' type) go to the tensor cores: tiles streamed by
+TMA through a ring in shared memory, S and dP as wgmmas, and the products
+with the f32 P or dS as three wgmmas each on P or dS split exactly into
+bf16 parts (``csrc/flash_attn_sm90.cuh``), so the function stays the
+reference's f32 one; their head dimensions are multiples of 8 with
+Dk <= 192 and Dv <= 128 (``tc_bucket`` there; ``check_operands`` refuses
+other bf16 widths on every device). f32 inputs go to CUDA-core kernels
+(f32 operations, the online softmax in registers), any width up to 256.
+Both skip the tiles the mask empties.
 
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version (``ref``) only for CPU tensors; ``meta`` tensors get the outputs'
@@ -33,7 +39,10 @@ from repro_torch.kernels.flash_attn.ref import (  # noqa: F401
     flash_attn_bwd_plain, flash_attn_fwd_plain,
 )
 
-MAX_HEAD_DIM = 256  # csrc/flash_attn.cuh: the widest bucket
+MAX_HEAD_DIM = 256  # csrc/flash_attn.cuh: the f32 kernels' widest bucket
+# csrc/flash_attn_sm90.cuh (tc_bucket): a bf16 head width keeps TMA's
+# row strides a multiple of 16 bytes, and the widest bucket is MLA's
+BF16_DIM_STEP, BF16_MAX_DK, BF16_MAX_DV = 8, 192, 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -53,6 +62,13 @@ def check_operands(q, k, v, q_offset: int, window: int):
     _build.require(T >= 1 and S >= 1 and B >= 1, "flash_attention: empty input")
     _build.require(q.dtype in _DTYPES and k.dtype == q.dtype == v.dtype,
                    "flash_attention: q, k, v must all be float32 or bfloat16")
+    Dv = v.shape[3]
+    _build.require(q.dtype != torch.bfloat16
+                   or (Dk % BF16_DIM_STEP == 0 and Dv % BF16_DIM_STEP == 0
+                       and Dk <= BF16_MAX_DK and Dv <= BF16_MAX_DV),
+                   f"flash_attention: bf16 head dims must be multiples of "
+                   f"{BF16_DIM_STEP} with Dk <= {BF16_MAX_DK} and Dv <= "
+                   f"{BF16_MAX_DV}; got Dk {Dk}, Dv {Dv}")
     _build.require(q.device == k.device == v.device,
                    "flash_attention: q, k, v on different devices")
     _build.require(q.device.type in ("cpu", "cuda", "meta"),

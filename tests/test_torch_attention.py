@@ -212,3 +212,47 @@ def test_remat_changes_no_value(name):
     assert torch.equal(l0, l1)
     for a, b in zip(g0, g1):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _split3(x):
+    """The bf16 kernels' split of an f32 tile (``split3`` in
+    ``csrc/flash_attn_sm90.cuh``) in the same arithmetic: hi = bf16_rn(x),
+    mid = bf16_rn(x - hi), lo = bf16_rn(x - hi - mid), each subtraction in
+    f32 (exact there) and each rounding to nearest even, as torch's
+    ``bfloat16`` conversion and the card's ``cvt.rn.bf16x2.f32``."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+# case -> (exponent range [lo, hi) of |x|, signed): P-like, dS-like, and
+# values so small that lo falls under bf16's smallest subnormal (2^-133)
+SPLIT_CASES = {"p_like": (-90, 0, False), "ds_like": (-90, 20, True),
+               "below_2^-110": (-149, -110, True)}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_three_bf16_parts_hold_an_f32_value_exactly(case):
+    """hi + mid + lo == x bit for bit in f64 on f32's normal range, so the
+    three bf16 x bf16 products of the split with any bf16 v add up to x·v
+    exactly (in f64); below 2^-110 the error stays <= 2^-134 absolute."""
+    lo_e, hi_e, signed = SPLIT_CASES[case]
+    rng = np.random.default_rng(23)
+    n = 1 << 17
+    mant = 1.0 + rng.integers(0, 1 << 23, n) / float(1 << 23)
+    x = np.ldexp(mant, rng.integers(lo_e, hi_e, n))
+    if signed:
+        x *= rng.choice([-1.0, 1.0], n)
+    x = torch.from_numpy(x.astype(np.float32))
+    if case == "p_like":
+        x[0] = 1.0  # the largest P
+    parts = [p.double() for p in _split3(x)]
+    total, xd = parts[0] + parts[1] + parts[2], x.double()
+    if case == "below_2^-110":
+        assert float((total - xd).abs().max()) <= 2.0**-134
+        return
+    assert torch.equal(total, xd)
+    v = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(torch.bfloat16).double()
+    assert torch.equal(parts[0] * v + parts[1] * v + parts[2] * v, xd * v)

@@ -494,3 +494,29 @@ def test_attention_wrapper_launches_its_kernel_for_cuda_tensors(monkeypatch):
     monkeypatch.setattr(_build, "library", unbuildable)
     with pytest.raises(RuntimeError, match="nvcc"):
         attend()
+
+
+@pytest.mark.parametrize("dk,dv", [(256, 256), (12, 12), (192, 136)])
+def test_bf16_attention_widths_the_card_refuses_are_refused_everywhere(dk, dv):
+    """bf16 head widths outside the tensor-core kernels' buckets (not a
+    multiple of 8, Dk > 192 or Dv > 128) raise the same ValueError on the
+    CPU, on meta tensors (the dry-run's) and on CUDA tensors (fake ones: no
+    card here) before any launch; f32 takes those widths."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.flash_attn import kernel as FA
+
+    def operands(device, dtype):
+        return (torch.zeros(1, 8, 2, dk, dtype=dtype, device=device),
+                torch.zeros(1, 8, 1, dk, dtype=dtype, device=device),
+                torch.zeros(1, 8, 1, dv, dtype=dtype, device=device))
+
+    launches = FA.flash_attn_fwd.launches
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="bf16 head dims"):
+            FA.flash_attn_fwd(*operands(device, torch.bfloat16))
+    with FakeTensorMode(), pytest.raises(ValueError, match="bf16 head dims"):
+        FA.flash_attn_fwd(*operands("cuda", torch.bfloat16))
+    assert FA.flash_attn_fwd.launches == launches
+    o32, lse = FA.flash_attn_fwd(*operands("cpu", torch.float32))
+    assert o32.shape == (1, 8, 2, dv) and bool(torch.isfinite(o32).all())
