@@ -157,15 +157,18 @@ nonzero):
      new tokens, ``--full``, bf16) for all ten architectures, at full depth
      but for granite-34b and llava-next-34b (16 layers) and dbrx-132b and
      deepseek-v2-236b (2 layers, ``SERVE_LAYERS``): finite logits, tokens
-     [8, 16], prefill ms, decode ms per step, the peak and one attention
-     forward launch per attention site (``attn_sites``); (b) decode ==
+     [8, 16], prefill ms, decode ms per step, the peak, one attention
+     forward launch per attention site (``attn_sites``) and one decode
+     kernel launch a site a decode step (``decode_attn``, deepseek-v2's
+     ``mla_decode_attn``; ``decode_launches_want``); (b) decode ==
      forward at full width in f32 (``CACHE_RUNS``: danube, deepseek-v2 and
      dbrx at 2 layers with a ``capacity_factor`` that drops no token, 8 or
      E / K where larger, mamba2 at 2 layers with a
      300-token prompt across its SSD chunk, zamba2 at 7 layers, llava at 2
      layers): prefill with ``max_len`` = prompt + frontend + 3, three
      decode steps against the full-sequence logits at rtol/atol 2e-3 (two
-     attention forward launches a site: the forward and the prefill); and
+     attention forward launches a site: the forward and the prefill; three
+     decode launches a site); and
      every reduced configuration's forward card = CPU in f32 at 1e-4; (c)
      HFL training through ``train.run`` at ``2x2:H=2 --sync sparse
      --batch-per-mu 4 --seq 128``, 4 steps (``FAMILY_TRAIN``): mamba2-780m
@@ -202,8 +205,8 @@ nonzero):
      narrow size card = CPU bit for bit. NCCL across cards waits for a
      machine with four cards;
  11. one JSON line listing every ported kernel with its launches on each
-     path (and their sum), error, times and bound; it comes last, after 13
-     and
+     path (and their sum), error, times and bound; it comes last, after
+     12, 13 and 14;
  12. checkpoints and the dry-run (``checkpoint_and_dryrun``): (b) the
      dry-run of olmo-1b x train_4k on both production meshes (``meta``
      tensors over a fake process group: nothing allocated), and its
@@ -211,7 +214,7 @@ nonzero):
      ``torch.cuda.memory_allocated`` across ``hfl_init`` on the card,
      within 512 B a leaf; (a) the train CLI with ``--ckpt-dir`` at full
      olmo-1b width and ``CKPT_LAYERS`` layers, ``2x2:H=2``, 4 steps, with
-     ``fused``, ``pallas`` and ``fused --flat-shards 4``: the file (~12 GB)
+     ``fused``, ``pallas`` and ``fused --flat-shards 4``: the file (~5.6 GB)
      restored into a fresh card state (every leaf bit for bit, written in
      place into the flat buffers the sync finds), its sha256 equal to the
      CPU encoder's on a host copy of the saved state, and one more period
@@ -222,7 +225,7 @@ nonzero):
      read seconds and GB/s, the free disk (it fails when the file cannot
      fit) and the host's resident set during the write, the read and the
      CPU encoding;
- 13. long context (``long_context``, before the summary): (a) the main
+ 13. long context (``long_context``): (a) the main
      path at train_4k's length, ``LONG_ARGV`` (full olmo-1b, ``--seq 4096
      --batch-per-mu 1``, fused, 4 steps): s/step, sync ms, peak, the
      attention kernels' launches against what the path implies (remat's
@@ -232,9 +235,9 @@ nonzero):
      held bit for bit, both peaks); (b) the serving twin at
      prefill_32k's length, batch 2, 8 new tokens, for olmo-1b and
      danube3-4b (window 4096, the ring cache wrapping): prefill s, decode
-     ms/step, peak, one forward launch a layer; decode == forward in f32 at
-     2 layers and lengths the reference takes (``LONG_CACHE_RUNS``) at
-     2e-3; (c) ``flash_attn_fwd``/``flash_attn_bwd`` against their plain
+     ms/step, peak, one forward launch a layer and one decode launch a layer
+     a decode step; decode == forward in f32 at 2 layers and lengths the
+     reference takes (``LONG_CACHE_RUNS``) at 2e-3; (c) ``flash_attn_fwd``/``flash_attn_bwd`` against their plain
      versions at ``ATTN_SHAPES`` (the paths' shapes: olmo's train_4k,
      13b's two prefills, forward only for danube's, phase 4's cluster
      batch; danube's window and GQA at 8,192, MLA, and the edge cases) in
@@ -247,7 +250,33 @@ nonzero):
      prefill_32k shapes beside their bounds (every product at the bf16
      tensor-core rate, those with the f32 P or dS three times), SDPA
      (efficient backend) on f32 copies, and SDPA's flash backend on the
-     bf16 inputs (it rounds P to bf16: not the same function).
+     bf16 inputs (it rounds P to bf16: not the same function);
+ 14. decode at the long shapes (``long_decode``, before the summary), each
+     run from a seeded cache in the state a context of the shape's length
+     less 8 tokens leaves (``seeded_cache``: nothing prefills, as in the
+     reference's dry-run), then 8 greedy steps through
+     ``launch.steps.build_decode_step`` at full width: (a) decode_32k
+     (``DECODE_RUNS``): olmo-1b at full depth, batch 16 (cut from 128: the
+     cache is 4.295 GB a sequence), danube3-4b at full depth and the full
+     batch 128 (its 4,096-slot ring wrapped eight times), deepseek-v2 at 2
+     layers, batch 128; (b) long_500k, batch 1, full depth, for mamba2-780m,
+     zamba2-7b and danube3-4b (``LONG_ARCHS``), then danube3-4b at 2 layers
+     and zamba2-7b at 7 in f32 decoding 4 tokens from one seeded state on
+     the card and on a CPU copy (``LONG_CPU_RUNS``): logits at 2e-3, pos and
+     slot_pos equal, the written slots at 2e-3; each run prints decode
+     ms/step (first step excluded), the cache's GB, the peak (under
+     ``PEAK_LIMIT_GB``) and the decode kernels' launches against attention
+     sites x steps; (c) ``decode_attn`` and ``mla_decode_attn`` against
+     their plain versions at ``DECODE_SHAPES`` / ``MLA_SHAPES`` (each
+     attention config's decode_32k layer, danube's wrapped ring, zamba2's
+     long_500k ring, empty slots, one valid slot, S = 1, an S no split
+     divides, a window that masks most slots, D = 16 / 32; deepseek-v2's
+     latent at batch 128) in f32 (``ATTN_TOL``'s forward) and bf16 (one
+     ulp, at most ``BF16_DIFF_SHARE`` of the bits differing), two launches
+     bit for bit; both timed at the headline shapes (olmo-1b's decode_32k
+     layer at batch 16, deepseek-v2's latent at batch 128) beside their
+     bounds (``decode_bound``), their plain versions and one SDPA call on
+     f32 copies with a boolean mask.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
 result. ``--profile DIR`` runs phases 4 and 5 under ``torch.profiler`` and
@@ -279,7 +308,8 @@ N_CLUSTERS, STEPS, PERIOD = 2, 4, 2
 KERNEL_FUNCTIONS = ("select_kernel", "update_max_kernel", "slice_hist_kernel",
                     "tile_order_sum_kernel", "apply_mask_kernel", "bitpack_kernel",
                     "fwd_kernel", "dq_kernel", "dkv_kernel", "fwd_wgmma_kernel",
-                    "dq_wgmma_kernel", "dkv_wgmma_kernel")
+                    "dq_wgmma_kernel", "dkv_wgmma_kernel", "decode_split_kernel",
+                    "decode_merge_kernel")
 # the bf16 attention kernels (csrc/flash_attn{,_bwd}.cu): tensor cores and TMA
 ATTN_TC_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel")
 # block_select's spans (csrc/fused_sync.cu): a warp's and a CTA's share of a tile
@@ -294,14 +324,15 @@ FIG3_LAYERS = 6  # paper-fig3's depth cut: 7 clusters' state at full width
 SCALE_LAYERS = 4
 TRACE_SEED = 25  # trace-replay: an MU re-associates within the 4 steps
 # the depth-3 runs' depth cut: 4 clusters' state plus the tier buffers (24
-# B/param) and the probe's two scratch rows pass the card at 16 layers
-HIER_LAYERS = 6
+# B/param) and the probe's two scratch rows; 4 layers (6 until phase 14
+# took the whole script past 1,000 s)
+HIER_LAYERS = 4
 HIER_DEADLINE_SEED = 0  # hier-deadline: the deadline drops an MU in both rounds
 ASYNC_ROOT = "2x2x4:H=2,2:async"  # the scenario-free async-root tree
 PEAK_LIMIT_GB = 76.0
 # the telemetry runs' --metrics-out / --trace-viz files (build/ is ignored)
 OBS_DIR = ROOT / "build" / "chip_smoke_obs"
-OBS_LAYERS = 6  # phase 8b's depth cut: async at 6 layers (see the docstring)
+OBS_LAYERS = 4  # phases 8b/8c's depth cut (6 until phase 14 took the script past 1,000 s)
 # phase 9a: the serving twin at full width with the example's defaults; the
 # depth cut of each configuration whose weights alone would take most of
 # the card (or more): granite and llava ~0.38-0.56B params a layer, dbrx
@@ -405,6 +436,9 @@ def ptxas_report(log):
             name = next((k for k in KERNEL_FUNCTIONS if k in mangled), mangled)
             if "flash_attn" in mangled:  # one line per instantiation
                 name = attn_instance(name, mangled)
+            elif "decode_attn" in mangled:  # <type, heads a warp, chunks a lane>
+                dt = "bf16" if "bfloat16" in mangled else "f32"
+                name = f"decode_attn {name}<{','.join([dt] + re.findall(r'Li(\d+)E', mangled))}>"
         elif name and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
             out.setdefault(name, {}).update(stack_bytes=nums[0], spill_stores=nums[1],
@@ -640,13 +674,15 @@ def model_families(torch, counters, by_path, smi):
         for fn in attn.values():
             fn.launches = 0
 
-    def attn_check(what, forwards, cfg):
+    def attn_check(what, forwards, decodes, cfg):
         """The attention launches since ``attn_zero``: ``forwards`` no-grad
         forwards of ``cfg`` launch the forward kernel at each attention
-        site, and nothing launches the backward."""
+        site, ``decodes`` decode steps the decode kernel at each, and
+        nothing launches the backward."""
         torch.cuda.synchronize()
         got = {k: fn.launches for k, fn in attn.items()}
-        want = {"flash_attn_fwd": forwards * attn_sites(cfg), "flash_attn_bwd": 0}
+        want = {"flash_attn_fwd": forwards * attn_sites(cfg), "flash_attn_bwd": 0,
+                **decode_launches_want(cfg, decodes)}
         if got != want:
             raise AssertionError(f"{what}: attention launches {got}, want {want}")
         return got
@@ -658,8 +694,8 @@ def model_families(torch, counters, by_path, smi):
         out = serve_batched.run(arch, batch=8, prompt_len=48, new_tokens=16,
                                 device="cuda", full=True,
                                 layers=SERVE_LAYERS.get(arch))
-        # one prefill; decode attends through the cache, not the kernel
-        launches = attn_check(f"serve {arch}", 1, dataclasses.replace(
+        # one prefill, then new_tokens - 1 decode steps against the cache
+        launches = attn_check(f"serve {arch}", 1, 15, dataclasses.replace(
             get_config(arch), num_layers=out["layers"]))
         by_path[f"{arch} serve"] = launches
         finite = bool(torch.isfinite(out["logits"][..., :get_config(arch).vocab_size]
@@ -712,7 +748,9 @@ def model_families(torch, counters, by_path, smi):
                 if not torch.allclose(got, want, rtol=CACHE_TOL, atol=CACHE_TOL):
                     raise AssertionError(f"cache {arch}: decode step {s} differs "
                                          f"from forward by {errs[-1]}")
-        launches = attn_check(f"cache {arch}", 2, cfg)  # the forward, the prefill
+        # the forward and the prefill; the decode steps
+        launches = attn_check(f"cache {arch}", 2, CACHE_STEPS, cfg)
+        by_path[f"{arch} decode == forward"] = launches
         peak = torch.cuda.max_memory_allocated()
         emit({"phase": "families_cache", "arch": arch, "layers": layers,
               "prompt": T, "frontend_tokens": F, "steps": CACHE_STEPS,
@@ -824,7 +862,8 @@ def model_families(torch, counters, by_path, smi):
 # ---- phase 10: the sharded flat vector and the mesh syncs ----------------
 SHARDS = 4  # 10a/10b: the flat vector in 4 pieces, (data, model) = (2, 2)
 # 10c's depth cut: 8 rank processes, their contexts and blocks share the card
-POD_LAYERS = 4
+# (4 layers until phase 14 took the whole script past 1,000 s)
+POD_LAYERS = 2
 CHUNK = 1 << 22  # 10b's seeded chunks and the fingerprints' chunk
 RANK_TIMEOUT_S = 300
 _H = -7046029254386353131  # 0x9E3779B97F4A7C15 as int64: the position hash
@@ -1348,7 +1387,9 @@ def sharded_paths(torch, counters, by_path, smi):
 
 
 # ---- phase 12: checkpoints and the dry-run --------------------------------
-CKPT_LAYERS = 4  # 12a's depth cut: ~12 GB a file at 2x2 (Q ~ 371M)
+# 12a's depth cut: 1 layer, ~5.6 GB a file at 2x2 (Q ~ 170M), 4 until
+# phase 14 took the whole script past 1,000 s
+CKPT_LAYERS = 1
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 CKPT_RUNS = (("fused", 1), ("pallas", 1), ("fused", SHARDS))
 # the file's sha256 against the CPU encoder: once, on the padded layout (the
@@ -1654,7 +1695,7 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
 # ---- phase 13: long context ------------------------------------------------
 # 13a: the main path at train_4k's length (its batch of 256 cut to 2 MUs x 1
 # a cluster); 13b: the serving twin at prefill_32k's length (its batch of 32
-# cut to 2: the full batch's cache alone is 68.7 GB)
+# cut to 2: the full batch's olmo-1b cache is 137.4 GB, its K alone 68.7 GB)
 LONG_SEQ, LONG_STEPS = 4096, 4
 LONG_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--omega-impl", "fused", "--batch-per-mu", "1", "--seq", str(LONG_SEQ),
@@ -1700,10 +1741,21 @@ BF16_TFLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 
 
 def attn_kernels():
-    """The attention wrappers by name (their ``launches`` counters)."""
+    """The attention wrappers by name (their ``launches`` counters): the
+    flash kernels of train and prefill, and the decode step's."""
+    from repro_torch.kernels.decode_attn import kernel as DA
     from repro_torch.kernels.flash_attn import kernel as FA
 
-    return {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd}
+    return {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd,
+            "decode_attn": DA.decode_attn, "mla_decode_attn": DA.mla_decode_attn}
+
+
+def decode_launches_want(cfg, steps):
+    """Decode kernel launches of ``steps`` decode steps of ``cfg``: one an
+    attention site a step, MLA's through ``mla_decode_attn``."""
+    n = steps * attn_sites(cfg)
+    return {"decode_attn": 0 if cfg.use_mla else n,
+            "mla_decode_attn": n if cfg.use_mla else 0}
 
 
 def attn_sites(cfg):
@@ -1725,7 +1777,8 @@ def attn_launches_want(sites, steps, clusters, seq):
 
     chunks = -(-32 // max(1, EVAL_CHUNK_TOKENS // seq))
     return {"flash_attn_fwd": steps * clusters * 2 * sites + chunks * sites,
-            "flash_attn_bwd": steps * clusters * sites}
+            "flash_attn_bwd": steps * clusters * sites,
+            "decode_attn": 0, "mla_decode_attn": 0}
 
 
 def train_attn_want(argv):
@@ -2046,7 +2099,9 @@ def long_context(torch, by_path, smi, kernels):
               "finite_logits": finite, "peak_gb": out["peak_gb"],
               "launches": launches, "card": smi})
         by_path[f"{arch} prefill {PREFILL_LEN}"] = launches
-        if launches["flash_attn_fwd"] != acfg.num_layers or launches["flash_attn_bwd"]:
+        want_dec = decode_launches_want(acfg, PREFILL_NEW - 1)
+        if (launches["flash_attn_fwd"] != acfg.num_layers or launches["flash_attn_bwd"]
+                or {k: launches[k] for k in want_dec} != want_dec):
             raise AssertionError(f"prefill {arch}: launches {launches}")
         if not finite or tuple(out["tokens"].shape) != (PREFILL_BATCH, PREFILL_NEW):
             raise AssertionError(f"prefill {arch}: non-finite logits or bad tokens")
@@ -2068,15 +2123,20 @@ def long_context(torch, by_path, smi, kernels):
         with torch.no_grad():
             full, _ = forward(params, toks, c)
             _, cache = prefill(params, toks[:, :T], c, max_len=T + 1)
+            zero()
             dl, cache = decode_step(params, cache, toks[:, T:], c)
+            launches = read()
         got, want_l = dl[:, 0, :V], full[:, T, :V]
         err = float((got - want_l).abs().max())
         ok = bool(torch.allclose(got, want_l, rtol=CACHE_TOL, atol=CACHE_TOL))
-        torch.cuda.synchronize()
+        want_dec = decode_launches_want(c, 1)
+        by_path[f"{arch} decode == forward at {T + 1}"] = launches
+        if {k: launches[k] for k in want_dec} != want_dec:
+            raise AssertionError(f"long cache {arch}: decode launches {launches}")
         emit({"phase": "long_cache", "arch": arch, "layers": 2, "prompt": T,
               "decoded": 1, "total": T + 1, "dtype": "float32",
               "window": c.sliding_window, "cache_slots": cache["slot_pos"].shape[1],
-              "max_abs_err": err, "tol": CACHE_TOL,
+              "max_abs_err": err, "tol": CACHE_TOL, "decode_launches": launches,
               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
         if not ok:
             raise AssertionError(f"long cache {arch}: decode differs from forward by {err}")
@@ -2144,6 +2204,368 @@ def long_context(torch, by_path, smi, kernels):
         del q, k, v, do, o32, lse
         free(torch)
     emit({"phase": "long_context_done", "seconds": time.perf_counter() - t13})
+
+
+# ---- phase 14: decode at the long shapes -----------------------------------
+# decode_32k (the reference's batch 128, 32,768 slots) and long_500k (batch 1,
+# 524,288 tokens, the subquadratic configs), each from the cache state that a
+# context of the shape's length less DECODE_NEW tokens leaves (seeded
+# entries, each slot holding its position; a sliding-window ring the last
+# ``window`` positions at pos mod window), then DECODE_NEW greedy steps to the
+# shape's last position. Nothing prefills: the reference's dry-run lowers
+# decode_step against init_cache alone (its prefill's [B, T, V] logits
+# would be 33.6 GB at 524,288 tokens)
+DECODE_NEW = 8
+DECODE_32K, LONG_500K = 32768, 524288
+# 14a: arch -> (batch, layers; None = full depth). olmo-1b's batch is cut
+# from 128 to 16: its cache is 4.295 GB a sequence (549.8 GB at 128; at 16
+# 68.72 GB beside 2.36 GB of weights). danube3-4b's 4,096-slot ring is 48.32
+# GB at the full 128. deepseek-v2 at 2 of 60 layers (weights, as phase 9a)
+DECODE_RUNS = {"olmo-1b": (16, None), "h2o-danube-3-4b": (128, None),
+               "deepseek-v2-236b": (128, 2)}
+LONG_ARCHS = ("mamba2-780m", "zamba2-7b", "h2o-danube-3-4b")  # 14b, full depth
+# 14b's card = CPU decode in f32 at full width: arch -> layers (zamba2's 7
+# hold shared attention sites at layers 0 and 6, as phase 9b)
+LONG_CPU_RUNS = {"h2o-danube-3-4b": 2, "zamba2-7b": 7}
+LONG_CPU_STEPS = 4
+# 14c: decode_attn against its plain version: name -> (B, S, H, Hkv, D,
+# window, slots, context): "full" slots hold positions 0 .. context - 1 (the
+# rest empty), "ring" the last S positions of the context at pos mod S,
+# "empty" none, "one" a single slot; the query sits at position context.
+# Each config's decode_32k layer at a batch that leaves room for the plain
+# version's f32 copies; the first is the headline (olmo-1b, 14a's batch)
+DECODE_SHAPES = {
+    "olmo-1b decode_32k": (16, DECODE_32K, 16, 16, 128, 0, "full", 32760),
+    "danube3-4b decode_32k ring": (128, 4096, 32, 8, 120, 4096, "ring", 32760),
+    "starcoder2-3b decode_32k": (128, DECODE_32K, 24, 2, 128, 0, "full", 32760),
+    "granite-34b decode_32k": (128, DECODE_32K, 48, 1, 128, 0, "full", 32760),
+    "llava-next-34b decode_32k": (32, DECODE_32K, 56, 8, 128, 0, "full", 32760),
+    "dbrx-132b decode_32k": (32, DECODE_32K, 48, 8, 128, 0, "full", 32760),
+    "musicgen-medium decode_32k": (16, DECODE_32K, 24, 24, 64, 0, "full", 32760),
+    "zamba2-7b long_500k ring": (1, 4096, 32, 32, 112, 4096, "ring", 524280),
+    "empty slots": (2, 1000, 8, 2, 128, 0, "empty", 0),
+    "one valid slot": (2, 777, 4, 4, 64, 0, "one", 500),
+    "S = 1": (3, 1, 8, 8, 128, 0, "full", 1),
+    "S no split divides": (4, 5003, 8, 4, 128, 0, "full", 5003),
+    "window masks most": (2, 8192, 16, 2, 128, 64, "full", 8192),
+    "reduced d16": (2, 300, 4, 4, 16, 0, "full", 250),
+    "reduced d32 window": (2, 300, 4, 2, 32, 64, "full", 300),
+}
+# mla_decode_attn: name -> (B, S, H, r, dr, slots, context); deepseek-v2's
+# latent at decode_32k's full batch first
+MLA_SHAPES = {
+    "deepseek-v2 decode_32k": (128, DECODE_32K, 128, 512, 64, "full", 32760),
+    "deepseek-v2 reduced": (2, 300, 4, 64, 16, "full", 250),
+    "mla empty slots": (2, 500, 40, 512, 64, "empty", 0),
+    "mla S = 1": (2, 1, 128, 512, 64, "full", 1),
+}
+MLA_QK_DIM = 192  # deepseek-v2's dn + dr
+# q_abs at the model's scale: q_nope (unit variance) times W_uk (init scale
+# 1/sqrt(r)) summed over dn = 128, so 0.5 (scores of unit scale, as in 14a)
+MLA_Q_SCALE = 0.5
+
+
+def slot_layout(torch, kind, B, S, context, device):
+    """(slot_pos [B, S], q_pos [B]) int64 of a cache state (``DECODE_SHAPES``)."""
+    sp = torch.full((S,), -1, dtype=torch.long, device=device)
+    if kind == "full":
+        n = min(S, context)
+        sp[:n] = torch.arange(n, device=device)
+    elif kind == "ring":
+        p = torch.arange(max(0, context - S), context, device=device)
+        sp[p % S] = p
+    elif kind == "one":
+        sp[S // 3] = context - 1
+    return (sp.expand(B, S).contiguous(),
+            torch.full((B,), context, dtype=torch.long, device=device))
+
+
+def seeded_cache(torch, cfg, B, seq_len, context, gen, device):
+    """``init_cache(cfg, B, seq_len)`` in the state a ``context``-token prefix
+    leaves: every float entry a standard normal draw from ``gen``, each slot
+    holding its position (a sliding-window ring the last positions at pos
+    mod S; slots past the context empty), ``pos`` = context."""
+    from repro_torch.models.transformer import init_cache
+
+    cache = init_cache(cfg, B, seq_len, device=device)
+    for t in cache.values():
+        if t.is_floating_point():
+            t.normal_(generator=gen)
+    cache["pos"].fill_(context)
+    if "slot_pos" in cache:
+        S = cache["slot_pos"].shape[1]
+        kind = "ring" if cfg.sliding_window else "full"
+        cache["slot_pos"].copy_(slot_layout(torch, kind, B, S, context, device)[0])
+    return cache
+
+
+def decode_bound(nbytes, low, f32_operand, elem):
+    """(bound ms, bound_by): the bytes over the memory rate, or the products:
+    in bf16 at the tensor cores' rate, those with the f32 softmax weights
+    three times (their exact split into three bf16 parts); in f32 all at
+    the f32 rate. The larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if elem == 2:
+        t_ops = (low + 3 * f32_operand) / BF16_TFLOPS * 1e3
+    else:
+        t_ops = (low + f32_operand) / F32_FLOPS * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def decode_operands(torch, shape, dt, gen, dev):
+    B, S, H, Hkv, D, window, kind, context = shape
+    q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dt)
+    sp, qp = slot_layout(torch, kind, B, S, context, dev)
+    return q, k, v, sp, qp
+
+
+def mla_operands(torch, shape, dt, gen, dev):
+    B, S, H, r, dr, kind, context = shape
+    qa = (MLA_Q_SCALE * torch.randn(B, H, r, generator=gen, device=dev)).to(dt)
+    qr = torch.randn(B, H, dr, generator=gen, device=dev).to(dt)
+    ckv = torch.randn(B, S, r, generator=gen, device=dev).to(dt)
+    kr = torch.randn(B, S, dr, generator=gen, device=dev).to(dt)
+    sp, pos = slot_layout(torch, kind, B, S, context, dev)
+    return qa, qr, ckv, kr, sp, pos
+
+
+def decode_kernel_checks(torch, DA, gen):
+    """Phase 14c: ``decode_attn`` at every ``DECODE_SHAPES`` entry and
+    ``mla_decode_attn`` at every ``MLA_SHAPES`` entry against their plain
+    versions, f32 at ``ATTN_TOL`` and bf16 within one ulp with at most
+    ``BF16_DIFF_SHARE`` of the entries' bits differing (``attn_compare``);
+    two launches bit for bit. Returns the checks by "<shape> <dtype>"."""
+    dev = torch.device("cuda")
+    checks = {}
+    runs = [("decode_attn", n, s) for n, s in DECODE_SHAPES.items()]
+    runs += [("mla_decode_attn", n, s) for n, s in MLA_SHAPES.items()]
+    for kname, name, shape in runs:
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            if kname == "decode_attn":
+                ops = decode_operands(torch, shape, dt, gen, dev)
+                kw = dict(window=shape[5])
+                kernel, plain = DA.decode_attn, DA.decode_attn_plain
+            else:
+                ops = mla_operands(torch, shape, dt, gen, dev)
+                kw = dict(qk_head_dim=MLA_QK_DIM)
+                kernel, plain = DA.mla_decode_attn, DA.mla_decode_attn_plain
+            got = kernel(*ops, **kw)
+            again = kernel(*ops, **kw)
+            bits = torch.int16 if bf16 else torch.int32
+            repeat_bitwise = torch.equal(got.view(bits), again.view(bits))
+            del again
+            res = attn_compare(torch, got, plain(*ops, **kw), "fwd", bf16)
+            torch.cuda.synchronize()
+            checks[f"{name} {'bf16' if bf16 else 'f32'}"] = res
+            emit({"check": kname, "shape": name, "dims": shape,
+                  "dtype": str(dt).split(".")[-1], "max_abs_err": res[0],
+                  "worst_over_allowance": res[1], "bf16_diff_share": res[2],
+                  "repeat_bitwise": repeat_bitwise})
+            if attn_failed(res):
+                raise AssertionError(f"{kname} {name} {dt}: kernel and plain version "
+                                     f"differ beyond the tolerance: {res}")
+            if not repeat_bitwise:
+                raise AssertionError(f"{kname} {name} {dt}: two launches on the same "
+                                     "inputs differ")
+            del ops, got
+            free(torch)
+    return checks
+
+
+def decode_timings(torch, DA, gen, checks, kernels):
+    """14c's timings in bf16 at the two headline shapes: ``decode_attn`` at
+    olmo-1b's decode_32k layer (B = 16) and ``mla_decode_attn`` at
+    deepseek-v2's latent (B = 128), each beside its bound, its plain version
+    and one SDPA call on f32 copies with a boolean mask (the G query heads
+    of a kv head, or MLA's H heads over its one latent row, as the query
+    rows of one head; whichever backend SDPA picks), timed here and used
+    nowhere in the port."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.decode_attn.ref import valid_slots
+
+    dev = torch.device("cuda")
+    for kname, name in (("decode_attn", "olmo-1b decode_32k"),
+                        ("mla_decode_attn", "deepseek-v2 decode_32k")):
+        if kname == "decode_attn":
+            shape = DECODE_SHAPES[name]
+            B, S, H, Hkv, D, window, kind, context = shape
+            q, k, v, sp, qp = ops = decode_operands(torch, shape, torch.bfloat16, gen, dev)
+            kw, reps = dict(window=window), 20
+            kernel, plain = DA.decode_attn, DA.decode_attn_plain
+            nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2 + (sp.numel() + B) * 8
+            low = f32op = 2.0 * B * H * S * D
+            G = H // Hkv
+            lq = q.float().reshape(B, Hkv, G, D)  # [B, Hkv, G, D]: G query rows
+            lk, lv = (t.float().transpose(1, 2).contiguous() for t in (k, v))
+            scale = 1.0 / math.sqrt(D)
+        else:
+            shape = MLA_SHAPES[name]
+            B, S, H, r, dr, kind, context = shape
+            qa, qr, ckv, kr, sp, qp = ops = mla_operands(torch, shape, torch.bfloat16,
+                                                         gen, dev)
+            kw, reps = dict(qk_head_dim=MLA_QK_DIM), 3
+            kernel, plain = DA.mla_decode_attn, DA.mla_decode_attn_plain
+            nbytes = ((qa.numel() * 2 + qr.numel() + ckv.numel() + kr.numel()) * 2
+                      + (sp.numel() + B) * 8)
+            low, f32op = 2.0 * B * H * S * (r + dr), 2.0 * B * H * S * r
+            lq = torch.cat([qa, qr], -1).float()[:, None]  # [B, 1, H, r + dr]
+            lk = torch.cat([ckv, kr], -1).float()[:, None]
+            lv = ckv.float()[:, None]
+            scale = 1.0 / math.sqrt(MLA_QK_DIM)
+        ms = cuda_ms(torch, lambda: kernel(*ops, **kw), reps)
+        plain_ms = cuda_ms(torch, lambda: plain(*ops, **kw), 1)
+        mask = valid_slots(sp, qp, kw.get("window", 0))[:, None, None]
+        lib_ms = cuda_ms(torch, lambda: Fn.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mask, scale=scale), reps)
+        b_ms, by = decode_bound(nbytes, low, f32op, 2)
+        kernels.setdefault(kname, {})[name] = entry = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
+            max_abs_err=checks[f"{name} bf16"][0], dims=shape, dtype="bfloat16",
+            bytes=nbytes, flops=low + f32op,
+            library="SDPA on f32 copies, boolean mask, default backend")
+        emit({"timing": kname, "shape": name, **entry})
+        del ops, lq, lk, lv, mask
+        free(torch)
+
+
+def long_decode(torch, by_path, smi, kernels):
+    """Phase 14: (a) decode_32k through ``launch.steps.build_decode_step`` at
+    full width (``DECODE_RUNS``): decode ms/step (first step excluded), the
+    peak, the decode kernels' launches against attention sites x steps; (b)
+    long_500k for ``LONG_ARCHS`` at full depth, batch 1, then card = CPU in
+    f32 at 2e-3 (``LONG_CPU_RUNS``); (c) the decode kernels against their
+    plain versions (``decode_kernel_checks``) and timed at the two headline
+    shapes (``decode_timings``). Adds each run's launches to ``by_path`` and
+    each timing to ``kernels``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import kernel as DA
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models.transformer import decode_step, init_model
+    from repro_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda")
+    t14 = time.perf_counter()
+    limit = PEAK_LIMIT_GB * 1e9
+    counted = attn_kernels()
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in counted.items()}
+
+    def run(shape, arch, B, layers, seq_len):
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        V = cfg.vocab_size
+        free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(14)
+        context = seq_len - DECODE_NEW
+        cache = seeded_cache(torch, cfg, B, seq_len, context, gen, dev)
+        cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+        tok = torch.randint(0, V, (B, 1), generator=gen, device=dev)
+        step = build_decode_step(cfg)
+        times = []
+        zero()
+        for _ in range(DECODE_NEW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = step(params, cache, tok)
+            tok = logits[:, -1:, :V].argmax(-1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = read()
+        peak = torch.cuda.max_memory_allocated()
+        want = decode_launches_want(cfg, DECODE_NEW)
+        finite = bool(torch.isfinite(logits[..., :V].float()).all())
+        written = None
+        if "slot_pos" in cache:  # the new positions, each in its slot
+            S = cache["slot_pos"].shape[1]
+            p = torch.arange(context, seq_len, device=dev)
+            slot = p % S if cfg.sliding_window else p.clamp_max(S - 1)
+            written = bool((cache["slot_pos"][:, slot] == p).all())
+        emit({"phase": "long_decode", "shape": shape, "arch": arch,
+              "layers": cfg.num_layers, "of_layers": get_config(arch).num_layers,
+              "batch": B, "context": context, "last_position": seq_len - 1,
+              "new_tokens": DECODE_NEW, "cache_gb": cache_gb,
+              "decode_ms_per_step": 1e3 * sum(times[1:]) / (DECODE_NEW - 1),
+              "step_ms": [1e3 * t for t in times], "peak_gb": peak / 1e9,
+              "finite_logits": finite, "new_slots_written": written,
+              "launches": launches, "launches_want": want, "card": smi})
+        by_path[f"{arch} {shape} decode"] = launches
+        if {k: launches[k] for k in want} != want or launches["flash_attn_fwd"]:
+            raise AssertionError(f"{shape} {arch}: launches {launches}, want {want}")
+        if not finite or written is False or int(cache["pos"][0]) != seq_len:
+            raise AssertionError(f"{shape} {arch}: non-finite logits or a wrong cache")
+        if peak >= limit:
+            raise AssertionError(f"{shape} {arch}: peak {peak / 1e9:.2f} GB")
+        del params, cache, logits
+
+    # 14a. decode_32k; 14b. long_500k at full depth
+    for arch, (B, layers) in DECODE_RUNS.items():
+        run("decode_32k", arch, B, layers, DECODE_32K)
+    for arch in LONG_ARCHS:
+        run("long_500k", arch, 1, None, LONG_500K)
+
+    # 14b. card = CPU at long_500k's positions, f32 model math at full width
+    for arch, layers in LONG_CPU_RUNS.items():
+        c = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
+        V = c.vocab_size
+        free(torch)
+        cpu_p = init_model(torch.Generator().manual_seed(0), c, device="cpu")
+        card_p = tree_map(lambda a: a.to(dev), cpu_p)
+        context = LONG_500K - DECODE_NEW
+        cpu_c = seeded_cache(torch, c, 1, LONG_500K, context,
+                             torch.Generator().manual_seed(14), "cpu")
+        card_c = {n: t.to(dev, copy=True) for n, t in cpu_c.items()}
+        toks = torch.randint(0, V, (LONG_CPU_STEPS, 1, 1),
+                             generator=torch.Generator().manual_seed(15))
+        errs = []
+        zero()
+        with torch.no_grad():
+            for t in toks:
+                cl, cpu_c = decode_step(cpu_p, cpu_c, t, c)
+                gl, card_c = decode_step(card_p, card_c, t.to(dev), c)
+                got, want_l = gl[..., :V].cpu(), cl[..., :V]
+                errs.append(float((got - want_l).abs().max()))
+                if not torch.allclose(got, want_l, rtol=CACHE_TOL, atol=CACHE_TOL):
+                    raise AssertionError(f"long_500k {arch}: card and CPU logits differ "
+                                         f"by {errs[-1]}")
+        launches = read()
+        sp_equal = torch.equal(card_c["slot_pos"].cpu(), cpu_c["slot_pos"])
+        pos_equal = torch.equal(card_c["pos"].cpu(), cpu_c["pos"])
+        new = (cpu_c["slot_pos"][0] >= context).nonzero()[:, 0]  # the written slots
+        slot_err = max(float((card_c[n][:, :, new].cpu() - cpu_c[n][:, :, new]).abs().max())
+                       for n in ("k", "v"))
+        want = decode_launches_want(c, LONG_CPU_STEPS)
+        emit({"phase": "long_decode_card_equals_cpu", "arch": arch, "layers": layers,
+              "dtype": "float32", "positions": [context, context + LONG_CPU_STEPS - 1],
+              "max_abs_err_by_step": errs, "tol": CACHE_TOL, "pos_equal": pos_equal,
+              "slot_pos_equal": sp_equal, "written_slots": new.tolist(),
+              "written_slots_max_abs_err": slot_err, "launches": launches,
+              "card": smi})
+        by_path[f"{arch} long_500k card = CPU"] = launches
+        if not (pos_equal and sp_equal and len(new) == LONG_CPU_STEPS
+                and slot_err <= CACHE_TOL):
+            raise AssertionError(f"long_500k {arch}: card and CPU caches differ")
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"long_500k {arch}: launches {launches}, want {want}")
+        del cpu_p, card_p, cpu_c, card_c
+
+    # 14c. the kernels against their plain versions, then timed
+    gen = torch.Generator(device=dev).manual_seed(141)
+    checks = decode_kernel_checks(torch, DA, gen)
+    decode_timings(torch, DA, gen, checks, kernels)
+    emit({"phase": "long_decode_done", "seconds": time.perf_counter() - t14})
 
 
 def main(argv):
@@ -3570,6 +3992,9 @@ def main(argv):
     # ---- 13. long context: train_4k's and prefill_32k's lengths -----------
     long_context(torch, by_path, smi, kernels)
 
+    # ---- 14. decode at decode_32k's and long_500k's shapes ------------------
+    long_decode(torch, by_path, smi, kernels)
+
     # ---- 11. kernel summary -------------------------------------------------
     meta = {
         "block_select": ("src/repro_torch/csrc/fused_sync.cu",
@@ -3587,13 +4012,20 @@ def main(argv):
                            "src/repro/models/attention.py:23"),
         "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
                            "src/repro/models/attention.py:23"),
+        # the reference's jnp decode_attention and mla_decode's latent einsums
+        "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
+                        "src/repro/models/attention.py:85"),
+        "mla_decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
+                            "src/repro/models/attention.py:252"),
     }
     # the headline numbers at the shape of the path each kernel came with;
     # every shape timed under "shapes"
     first_shape = {"block_select": "olmo-1b", "update_max": "olmo-1b",
                    "tail_hist": "olmo-1b", "apply_mask": "resnet18",
                    "bitpack": "resnet18", "flash_attn_fwd": "olmo-1b train_4k",
-                   "flash_attn_bwd": "olmo-1b train_4k"}
+                   "flash_attn_bwd": "olmo-1b train_4k",
+                   "decode_attn": "olmo-1b decode_32k",
+                   "mla_decode_attn": "deepseek-v2 decode_32k"}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name][first_shape[name]]

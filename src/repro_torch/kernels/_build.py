@@ -48,6 +48,8 @@ SIGNATURES = {
     "rt_flash_attn_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, LL, I, F, I, P],
     "rt_flash_attn_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL,
                           I, F, I, P],
+    "rt_decode_attn": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P],
+    "rt_mla_decode_attn": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
 }
 
 

@@ -16,13 +16,12 @@ import math
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.kernels.decode_attn.kernel import decode_attn, mla_decode_attn
 from repro_torch.kernels.flash_attn.ops import FlashAttention
 from repro_torch.models.common import (
     apply_norm, apply_rope, default_scale, dense_init, init_norm, rope_angles,
     torch_dtype,
 )
-
-NEG_INF = -1e30
 
 
 def flash_attention(q, k, v, *, q_offset=0, window=0, q_chunk=512, kv_chunk=512):
@@ -69,22 +68,15 @@ def gqa_forward(p, x, cfg, *, window=None):
 
 
 def decode_attention(q, k, v, slot_pos, q_pos, *, window=0):
-    """One-token attention against a cache.
+    """One-token attention against a cache (the reference's, whose f32
+    function ``kernels.decode_attn`` computes, on the card without f32
+    copies of the cache).
 
-    q [B,1,H,D]; k,v [B,S,Hkv,D]; slot_pos [B,S] absolute position held by
-    each cache slot (-1 = empty); q_pos [B] absolute position of the query.
+    q [B,1,H,D]; k,v [B,S,Hkv,D] (a layer's view of the cache); slot_pos
+    [B,S] absolute position held by each cache slot (-1 = empty); q_pos [B]
+    absolute position of the query.
     """
-    B, _, H, D = q.shape
-    Hkv = k.shape[2]
-    G = H // Hkv
-    qg = q.float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * (1.0 / math.sqrt(D))
-    valid = (slot_pos >= 0) & (slot_pos <= q_pos[:, None])
-    if window:
-        valid &= slot_pos > (q_pos[:, None] - window)
-    s = s.masked_fill(~valid[:, None, None], NEG_INF)
-    out = torch.einsum("bhgk,bkhd->bhgd", torch.softmax(s, dim=-1), v.float())
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    return decode_attn(q, k, v, slot_pos, q_pos, window=window)
 
 
 def gqa_fill_cache(p, x, cfg):
@@ -186,7 +178,8 @@ def mla_fill_cache(p, x, cfg):
 
 
 def mla_decode(p, x, cache_ckv, cache_kr, slot_pos, slot, pos, cfg):
-    """Absorbed one-token MLA: scores and output in the latent space."""
+    """Absorbed one-token MLA: scores and output in the latent space
+    (``kernels.decode_attn.mla_decode_attn``)."""
     B = x.shape[0]
     H = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -196,12 +189,7 @@ def mla_decode(p, x, cache_ckv, cache_kr, slot_pos, slot, pos, cfg):
     cache_ckv[bidx, slot] = ckv[:, 0]
     cache_kr[bidx, slot] = k_rope[:, 0]
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], p["w_uk"])  # absorb W_uk
-    ckv_f = cache_ckv.float()
-    s = (torch.einsum("bhr,bsr->bhs", q_abs.float(), ckv_f)
-         + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), cache_kr.float())
-         ) / math.sqrt(dn + dr)
-    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-    w = torch.softmax(s.masked_fill(~valid[:, None], NEG_INF), dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", w, ckv_f).to(x.dtype)
+    o_lat = mla_decode_attn(q_abs, q_rope[:, 0], cache_ckv, cache_kr, slot_pos, pos,
+                            qk_head_dim=dn + dr)
     out = torch.einsum("bhr,rhd->bhd", o_lat, p["w_uv"]).reshape(B, 1, H * dv)
     return out @ p["wo"], cache_ckv, cache_kr

@@ -8,6 +8,7 @@ not jax's, so parity tests carry weights across with ``utils.convert``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from contextlib import contextmanager
 
@@ -105,12 +106,27 @@ def act_fn(name: str):
     return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(dim, theta, device):
+    exps = torch.arange(0, dim, 2, dtype=torch.float32) / dim
+    return (1.0 / theta ** exps.double()).float().to(device)
+
+
+def rope_inv_freq(dim, theta, device=None):
+    """[dim//2] f32, the reference's table bit for bit as its jitted steps
+    use it: XLA folds the constant ``1 / theta ** exps`` at compile time in
+    f64 and rounds it once to f32 (the correctly rounded table), where
+    torch's f32 ``pow`` and division are an ulp off at some entries of most
+    widths (112 and 120 among them). The angle ``position * inv_freq`` grows
+    that ulp with the position: at long_500k's it moves cos / sin by 3e-2.
+    The table is computed on the CPU, once a device, and moved there: CUDA
+    divides by a scalar through its reciprocal, which moves ``exps``."""
+    return _inv_freq(int(dim), float(theta), torch.device(device or "cpu"))
+
+
 def rope_angles(positions, dim, theta):
     """positions [*P] -> (cos, sin) each [*P, dim//2] in f32."""
-    exps = torch.arange(0, dim, 2, dtype=torch.float32,
-                        device=positions.device) / dim
-    inv_freq = 1.0 / (theta ** exps)
-    ang = positions.float()[..., None] * inv_freq
+    ang = positions.float()[..., None] * rope_inv_freq(dim, theta, positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -420,6 +420,22 @@ def test_kernel_wrappers_check_their_operands():
         BK.bitpack(torch.zeros(256, 1024, device="meta"))
     out, counts = BK.bitpack(ok)
     assert out.shape == (256, 128) and counts.shape == (1, 1)
+    from repro_torch.kernels.decode_attn import kernel as DA
+
+    q, kv = torch.zeros(2, 1, 4, 16), torch.zeros(2, 8, 2, 16)
+    sp, qp = torch.zeros(2, 8, dtype=torch.int64), torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError):  # dtype
+        DA.decode_attn(q.double(), kv.double(), kv.double(), sp, qp)
+    with pytest.raises(ValueError):  # slot_pos not int64
+        DA.decode_attn(q, kv, kv, sp.int(), qp)
+    with pytest.raises(ValueError):  # the cache not contiguous
+        DA.decode_attn(q, kv.transpose(0, 1).contiguous().transpose(0, 1), kv, sp, qp)
+    assert DA.decode_attn(q, kv, kv, sp, qp).shape == q.shape
+    qa, lat = torch.zeros(2, 4, 32), torch.zeros(2, 8, 32)
+    qr, kr = torch.zeros(2, 4, 8), torch.zeros(2, 8, 8)
+    with pytest.raises(ValueError):  # kr's width is not q_rope's
+        DA.mla_decode_attn(qa, qr, lat, lat, sp, qp, qk_head_dim=24)
+    assert DA.mla_decode_attn(qa, qr, lat, kr, sp, qp, qk_head_dim=24).shape == qa.shape
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -486,6 +502,70 @@ def test_attention_wrapper_launches_its_kernel_for_cuda_tensors(monkeypatch):
     assert (FA.flash_attn_fwd.launches, FA.flash_attn_bwd.launches) == (fwd0 + 2, bwd0 + 1)
     rc[0] = 719  # cudaErrorLaunchFailure
     with pytest.raises(RuntimeError, match="flash_attn_fwd failed to launch"):
+        attend(torch.float32)
+
+    def unbuildable():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "library", unbuildable)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        attend()
+
+
+def test_decode_wrappers_launch_their_kernels_for_cuda_tensors(monkeypatch):
+    """``decode_attention`` and ``mla_decode``'s latent part on CUDA tensors
+    (fake ones: no card here) go to the kernels' C entries, stubbed, with
+    the problem's sizes and a workspace of the splits, and count one launch
+    each call; a failed launch or a library that cannot be built raises:
+    nothing falls back to the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attn import kernel as DA
+    from repro_torch.models.attention import decode_attention
+
+    calls, rc = [], [0]
+
+    class Stub:
+        def rt_decode_attn(self, *args):
+            calls.append(("gqa", args[8:-1]))
+            return rc[0]
+
+        def rt_mla_decode_attn(self, *args):
+            calls.append(("mla", args[9:-1]))
+            return rc[0]
+
+    monkeypatch.setattr(_build, "library", Stub)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    launches = DA.decode_attn.launches, DA.mla_decode_attn.launches
+
+    def attend(dtype=torch.bfloat16):
+        with FakeTensorMode():
+            sp = torch.empty(2, 4096, dtype=torch.int64, device="cuda")
+            qp = torch.empty(2, dtype=torch.int64, device="cuda")
+            q = torch.empty(2, 1, 8, 120, device="cuda", dtype=dtype)
+            kv = torch.empty(2, 4096, 2, 120, device="cuda", dtype=dtype)
+            out = decode_attention(q, kv, kv, sp, qp, window=4096)
+            lat = DA.mla_decode_attn(torch.empty(2, 40, 64, device="cuda", dtype=dtype),
+                                     torch.empty(2, 40, 16, device="cuda", dtype=dtype),
+                                     torch.empty(2, 4096, 64, device="cuda", dtype=dtype),
+                                     torch.empty(2, 4096, 16, device="cuda", dtype=dtype),
+                                     sp, qp, qk_head_dim=48)
+            return out, lat
+
+    out, lat = attend()
+    assert out.shape == (2, 1, 8, 120) and out.dtype == torch.bfloat16
+    assert lat.shape == (2, 40, 64) and lat.dtype == torch.bfloat16
+    nsplit = DA.num_splits(2, 2, 4096)
+    assert 1 < nsplit <= 4096 // DA.MIN_SPAN
+    assert calls[0] == ("gqa", (2, 4096, 8, 2, 120, 4096, nsplit,
+                                pytest.approx(1.0 / np.sqrt(120)), 1))
+    assert calls[1] == ("mla", (2, 4096, 40, 64, 16, DA.num_splits(2, 2, 4096),
+                                pytest.approx(np.sqrt(48)), 1))
+    assert (DA.decode_attn.launches, DA.mla_decode_attn.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    rc[0] = 719  # cudaErrorLaunchFailure
+    with pytest.raises(RuntimeError, match="decode_attn failed to launch"):
         attend(torch.float32)
 
     def unbuildable():
