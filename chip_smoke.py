@@ -160,7 +160,8 @@ nonzero):
      [8, 16], prefill ms, decode ms per step, the peak, one attention
      forward launch per attention site (``attn_sites``) and one decode
      kernel launch a site a decode step (``decode_attn``, deepseek-v2's
-     ``mla_decode_attn``; ``decode_launches_want``); (b) decode ==
+     ``mla_decode_attn``, each on the kernel its route picks;
+     ``decode_launches_want``); (b) decode ==
      forward at full width in f32 (``CACHE_RUNS``: danube, deepseek-v2 and
      dbrx at 2 layers with a ``capacity_factor`` that drops no token, 8 or
      E / K where larger, mamba2 at 2 layers with a
@@ -266,17 +267,24 @@ nonzero):
      slot_pos equal, the written slots at 2e-3; each run prints decode
      ms/step (first step excluded), the cache's GB, the peak (under
      ``PEAK_LIMIT_GB``) and the decode kernels' launches against attention
-     sites x steps; (c) ``decode_attn`` and ``mla_decode_attn`` against
-     their plain versions at ``DECODE_SHAPES`` / ``MLA_SHAPES`` (each
-     attention config's decode_32k layer, danube's wrapped ring, zamba2's
-     long_500k ring, empty slots, one valid slot, S = 1, an S no split
-     divides, a window that masks most slots, D = 16 / 32; deepseek-v2's
-     latent at batch 128) in f32 (``ATTN_TOL``'s forward) and bf16 (one
-     ulp, at most ``BF16_DIFF_SHARE`` of the bits differing), two launches
-     bit for bit; both timed at the headline shapes (olmo-1b's decode_32k
-     layer at batch 16, deepseek-v2's latent at batch 128) beside their
-     bounds (``decode_bound``), their plain versions and one SDPA call on
-     f32 copies with a boolean mask.
+     sites x steps, on the kernel the wrappers' route picks (bf16 MLA and
+     bf16 G >= 2: the tensor-core kernels, ``*_tc``); (c) ``decode_attn``
+     and ``mla_decode_attn`` against their plain versions at
+     ``DECODE_SHAPES`` / ``MLA_SHAPES`` (each attention config's decode_32k
+     layer, danube's wrapped ring, zamba2's long_500k ring, empty slots, one
+     valid slot, S = 1, an S no split divides, a window that masks most
+     slots, D = 16 / 32, G = 64, splits the 32-slot tiles do not divide;
+     deepseek-v2's latent at batch 128, 40 heads, r = 64 / dr = 16) on the
+     routed kernel in f32 (``ATTN_TOL``'s forward) and bf16 (one ulp, at
+     most ``BF16_DIFF_SHARE`` of the bits differing), the bf16 entries the
+     tensor-core kernels take once more on the CUDA-core kernels, two
+     launches bit for bit; at ``DECODE_CONTROLS`` the plain version with the
+     softmax weights rounded once to bf16 must fail the bf16 check; then
+     timed at ``DECODE_TIMED`` (olmo-1b's decode_32k layer at batch 16,
+     granite-34b's, starcoder2-3b's and danube3-4b's ring at batch 128,
+     deepseek-v2's latent at batch 128; the CUDA-core kernel beside the
+     tensor-core one) beside their bounds (``decode_bound``), their plain
+     versions and one SDPA call on f32 copies with a boolean mask.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
 result. ``--profile DIR`` runs phases 4 and 5 under ``torch.profiler`` and
@@ -309,9 +317,14 @@ KERNEL_FUNCTIONS = ("select_kernel", "update_max_kernel", "slice_hist_kernel",
                     "tile_order_sum_kernel", "apply_mask_kernel", "bitpack_kernel",
                     "fwd_kernel", "dq_kernel", "dkv_kernel", "fwd_wgmma_kernel",
                     "dq_wgmma_kernel", "dkv_wgmma_kernel", "decode_split_kernel",
-                    "decode_merge_kernel")
-# the bf16 attention kernels (csrc/flash_attn{,_bwd}.cu): tensor cores and TMA
-ATTN_TC_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel")
+                    "decode_merge_kernel", "gqa_decode_wgmma_kernel",
+                    "mla_decode_wgmma_kernel")
+# the bf16 decode kernels of csrc/decode_attn_sm90.cu: <DP> or <NB>
+DECODE_TC_KERNELS = ("gqa_decode_wgmma_kernel", "mla_decode_wgmma_kernel")
+# the bf16 attention kernels (csrc/flash_attn{,_bwd}.cu, decode_attn_sm90.cu):
+# tensor cores and TMA
+ATTN_TC_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel",
+                   "dkv_wgmma_kernel") + DECODE_TC_KERNELS
 # block_select's spans (csrc/fused_sync.cu): a warp's and a CTA's share of a tile
 SELECT_WARP_SPAN, SELECT_CTA_SPAN = 1024, 8192
 # bitpack's design (csrc/bitpack.cu): CTAs per tile, elements per chunk
@@ -434,7 +447,7 @@ def ptxas_report(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = next((k for k in KERNEL_FUNCTIONS if k in mangled), mangled)
-            if "flash_attn" in mangled:  # one line per instantiation
+            if "flash_attn" in mangled or name in DECODE_TC_KERNELS:  # an instantiation
                 name = attn_instance(name, mangled)
             elif "decode_attn" in mangled:  # <type, heads a warp, chunks a lane>
                 dt = "bf16" if "bfloat16" in mangled else "f32"
@@ -457,6 +470,8 @@ def attn_instance(name, mangled):
     instantiation: the f32 (CUDA-core) kernels by their bucket, the bf16
     (tensor-core) ones by their padded head widths and tile."""
     args = re.findall(r"Li(\d+)E", mangled)
+    if name in DECODE_TC_KERNELS:  # GQA <padded head width>, MLA <ckv's blocks>
+        return f"decode_attn {name}<bf16,{args[0]}>"
     if name in ATTN_TC_KERNELS:  # <DKP, DVP, key or q tile>
         return f"flash_attn {name}<bf16,{args[0]}x{args[1]},{args[2]}>"
     return f"flash_attn {name}<f32,{args[0]}>"
@@ -1741,21 +1756,40 @@ BF16_TFLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 
 
 def attn_kernels():
-    """The attention wrappers by name (their ``launches`` counters): the
-    flash kernels of train and prefill, and the decode step's."""
+    """The attention kernels by name (their wrappers' ``launches``
+    counters): the flash kernels of train and prefill, and the decode
+    step's, the CUDA-core and the tensor-core kernel of each apart."""
     from repro_torch.kernels.decode_attn import kernel as DA
     from repro_torch.kernels.flash_attn import kernel as FA
 
     return {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd,
-            "decode_attn": DA.decode_attn, "mla_decode_attn": DA.mla_decode_attn}
+            "decode_attn": DA.decode_attn, "mla_decode_attn": DA.mla_decode_attn,
+            "decode_attn_tc": DA.decode_attn_tc,
+            "mla_decode_attn_tc": DA.mla_decode_attn_tc}
 
 
 def decode_launches_want(cfg, steps):
     """Decode kernel launches of ``steps`` decode steps of ``cfg``: one an
-    attention site a step, MLA's through ``mla_decode_attn``."""
+    attention site a step, on the kernel ``route`` picks for the model's
+    dtype and widths (MLA's through ``mla_decode_attn``)."""
+    import torch
+
+    from repro_torch.kernels.decode_attn import kernel as DA
+
     n = steps * attn_sites(cfg)
-    return {"decode_attn": 0 if cfg.use_mla else n,
-            "mla_decode_attn": n if cfg.use_mla else 0}
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.use_mla:
+        name = "mla_decode_attn"
+        widths, group = (cfg.kv_lora_rank, cfg.qk_rope_head_dim), None
+    else:
+        name = "decode_attn"
+        widths, group = (cfg.resolved_head_dim,), cfg.num_heads // max(1, cfg.num_kv_heads)
+    if DA.route(dtype, widths, group) == DA.TENSOR_CORES:
+        name += "_tc"
+    want = dict.fromkeys(("decode_attn", "mla_decode_attn", "decode_attn_tc",
+                          "mla_decode_attn_tc"), 0)
+    want[name] = n
+    return want
 
 
 def attn_sites(cfg):
@@ -1777,8 +1811,8 @@ def attn_launches_want(sites, steps, clusters, seq):
 
     chunks = -(-32 // max(1, EVAL_CHUNK_TOKENS // seq))
     return {"flash_attn_fwd": steps * clusters * 2 * sites + chunks * sites,
-            "flash_attn_bwd": steps * clusters * sites,
-            "decode_attn": 0, "mla_decode_attn": 0}
+            "flash_attn_bwd": steps * clusters * sites, "decode_attn": 0,
+            "mla_decode_attn": 0, "decode_attn_tc": 0, "mla_decode_attn_tc": 0}
 
 
 def train_attn_want(argv):
@@ -2250,6 +2284,10 @@ DECODE_SHAPES = {
     "window masks most": (2, 8192, 16, 2, 128, 64, "full", 8192),
     "reduced d16": (2, 300, 4, 4, 16, 0, "full", 250),
     "reduced d32 window": (2, 300, 4, 2, 32, 64, "full", 300),
+    # the tensor-core kernel's edges: a kv head's most query heads (G = 64),
+    # and splits of 244 slots that its 32-slot tiles do not divide (D = 64)
+    "G = 64": (2, 3000, 128, 2, 128, 0, "full", 2900),
+    "span tiles do not divide": (4, 4133, 16, 4, 64, 0, "full", 4133),
 }
 # mla_decode_attn: name -> (B, S, H, r, dr, slots, context); deepseek-v2's
 # latent at decode_32k's full batch first
@@ -2258,7 +2296,21 @@ MLA_SHAPES = {
     "deepseek-v2 reduced": (2, 300, 4, 64, 16, "full", 250),
     "mla empty slots": (2, 500, 40, 512, 64, "empty", 0),
     "mla S = 1": (2, 1, 128, 512, 64, "full", 1),
+    # the tensor-core kernel's edges: a head chunk of 40 of its 64 rows, and
+    # one ckv block (r = 64, dr = 16) under 128 heads
+    "mla H = 40": (2, 3001, 40, 512, 64, "full", 2990),
+    "mla r = 64, dr = 16": (8, 4100, 128, 64, 16, "full", 4000),
 }
+# bf16 shapes where the plain version with the softmax weights rounded once
+# to bf16 must fail 14c's bf16 check
+DECODE_CONTROLS = ("granite-34b decode_32k", "deepseek-v2 decode_32k")
+# 14c's timed shapes (bf16): G = 1 (the CUDA-core kernel), G = 48, 12 and 4
+# (the tensor-core kernel, and the CUDA-core kernel beside it), MLA
+DECODE_TIMED = (("decode_attn", "olmo-1b decode_32k", 20),
+                ("decode_attn", "granite-34b decode_32k", 10),
+                ("decode_attn", "starcoder2-3b decode_32k", 10),
+                ("decode_attn", "danube3-4b decode_32k ring", 10),
+                ("mla_decode_attn", "deepseek-v2 decode_32k", 5))
 MLA_QK_DIM = 192  # deepseek-v2's dn + dr
 # q_abs at the model's scale: q_nope (unit variance) times W_uk (init scale
 # 1/sqrt(r)) summed over dn = 128, so 0.5 (scores of unit scale, as in 14a)
@@ -2331,70 +2383,129 @@ def mla_operands(torch, shape, dt, gen, dev):
     return qa, qr, ckv, kr, sp, pos
 
 
+def decode_route(DA, kname, shape, dt):
+    """The kernel ``DA.route`` picks for a ``DECODE_SHAPES`` (``decode_attn``)
+    or ``MLA_SHAPES`` entry in ``dt``: its counter's name."""
+    if kname == "decode_attn":
+        tc = DA.route(dt, (shape[4],), shape[2] // shape[3]) == DA.TENSOR_CORES
+    else:
+        tc = DA.route(dt, (shape[3], shape[4])) == DA.TENSOR_CORES
+    return kname + "_tc" if tc else kname
+
+
+def decode_call(torch, DA, kname, shape, dt, gen, dev):
+    """(operands, keywords, wrapper, plain version) of a 14c shape."""
+    if kname == "decode_attn":
+        return (decode_operands(torch, shape, dt, gen, dev), dict(window=shape[5]),
+                DA.decode_attn, DA.decode_attn_plain)
+    return (mla_operands(torch, shape, dt, gen, dev), dict(qk_head_dim=MLA_QK_DIM),
+            DA.mla_decode_attn, DA.mla_decode_attn_plain)
+
+
+def rounded_w_decode(torch, kname, ops, kw):
+    """The plain decode with the softmax weights rounded once to bf16 before
+    p . v (MLA: w . ckv), in the queries' type: the function of a kernel that
+    kept only the split's hi part. A control that 14c's bf16 check must
+    refuse."""
+    from repro_torch.kernels.decode_attn.ref import NEG_INF, valid_slots
+
+    if kname == "decode_attn":
+        q, k, v, sp, qp = ops
+        B, _, H, D = q.shape
+        Hkv = k.shape[2]
+        s = torch.einsum("bhgd,bkhd->bhgk", q.float().reshape(B, Hkv, H // Hkv, D),
+                         k.float()) * (1.0 / math.sqrt(D))
+        s = s.masked_fill(~valid_slots(sp, qp, kw["window"])[:, None, None], NEG_INF)
+        w = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+        return torch.einsum("bhgk,bkhd->bhgd", w, v.float()).reshape(q.shape).to(q.dtype)
+    qa, qr, ckv, kr, sp, pos = ops
+    s = (torch.einsum("bhr,bsr->bhs", qa.float(), ckv.float())
+         + torch.einsum("bhd,bsd->bhs", qr.float(), kr.float())
+         ) / math.sqrt(kw["qk_head_dim"])
+    w = torch.softmax(s.masked_fill(~valid_slots(sp, pos)[:, None], NEG_INF), dim=-1)
+    return torch.einsum("bhs,bsr->bhr", w.to(torch.bfloat16).float(),
+                        ckv.float()).to(qa.dtype)
+
+
 def decode_kernel_checks(torch, DA, gen):
     """Phase 14c: ``decode_attn`` at every ``DECODE_SHAPES`` entry and
     ``mla_decode_attn`` at every ``MLA_SHAPES`` entry against their plain
-    versions, f32 at ``ATTN_TOL`` and bf16 within one ulp with at most
-    ``BF16_DIFF_SHARE`` of the entries' bits differing (``attn_compare``);
-    two launches bit for bit. Returns the checks by "<shape> <dtype>"."""
+    versions, on the kernel ``DA.route`` picks, f32 at ``ATTN_TOL`` and bf16
+    within one ulp with at most ``BF16_DIFF_SHARE`` of the entries' bits
+    differing (``attn_compare``); two launches bit for bit. The bf16 entries
+    the tensor-core kernels take run once more on the CUDA-core kernels
+    (``cuda_cores=True``), so both stay held against the plain versions. At
+    ``DECODE_CONTROLS`` the plain version with the softmax weights rounded
+    once to bf16 (``rounded_w_decode``) must fail the bf16 check. Returns the
+    checks by "<shape> <dtype>" (" cuda cores" for the second runs)."""
     dev = torch.device("cuda")
-    checks = {}
+    checks, controls = {}, {}
     runs = [("decode_attn", n, s) for n, s in DECODE_SHAPES.items()]
     runs += [("mla_decode_attn", n, s) for n, s in MLA_SHAPES.items()]
     for kname, name, shape in runs:
         for dt in (torch.float32, torch.bfloat16):
             bf16 = dt == torch.bfloat16
-            if kname == "decode_attn":
-                ops = decode_operands(torch, shape, dt, gen, dev)
-                kw = dict(window=shape[5])
-                kernel, plain = DA.decode_attn, DA.decode_attn_plain
-            else:
-                ops = mla_operands(torch, shape, dt, gen, dev)
-                kw = dict(qk_head_dim=MLA_QK_DIM)
-                kernel, plain = DA.mla_decode_attn, DA.mla_decode_attn_plain
-            got = kernel(*ops, **kw)
-            again = kernel(*ops, **kw)
-            bits = torch.int16 if bf16 else torch.int32
-            repeat_bitwise = torch.equal(got.view(bits), again.view(bits))
-            del again
-            res = attn_compare(torch, got, plain(*ops, **kw), "fwd", bf16)
-            torch.cuda.synchronize()
-            checks[f"{name} {'bf16' if bf16 else 'f32'}"] = res
-            emit({"check": kname, "shape": name, "dims": shape,
-                  "dtype": str(dt).split(".")[-1], "max_abs_err": res[0],
-                  "worst_over_allowance": res[1], "bf16_diff_share": res[2],
-                  "repeat_bitwise": repeat_bitwise})
-            if attn_failed(res):
-                raise AssertionError(f"{kname} {name} {dt}: kernel and plain version "
-                                     f"differ beyond the tolerance: {res}")
-            if not repeat_bitwise:
-                raise AssertionError(f"{kname} {name} {dt}: two launches on the same "
-                                     "inputs differ")
-            del ops, got
+            ops, kw, kernel, plain = decode_call(torch, DA, kname, shape, dt, gen, dev)
+            want = plain(*ops, **kw)
+            routed = decode_route(DA, kname, shape, dt)
+            for cuda_cores in (False, True) if routed != kname else (False,):
+                got = kernel(*ops, **kw, cuda_cores=cuda_cores)
+                again = kernel(*ops, **kw, cuda_cores=cuda_cores)
+                bits = torch.int16 if bf16 else torch.int32
+                repeat_bitwise = torch.equal(got.view(bits), again.view(bits))
+                del again
+                res = attn_compare(torch, got, want, "fwd", bf16)
+                torch.cuda.synchronize()
+                key = f"{name} {'bf16' if bf16 else 'f32'}" + (" cuda cores" if cuda_cores
+                                                              else "")
+                checks[key] = res
+                ran = kname if cuda_cores else routed
+                emit({"check": kname, "kernel": ran, "shape": name, "dims": shape,
+                      "dtype": str(dt).split(".")[-1], "max_abs_err": res[0],
+                      "worst_over_allowance": res[1], "bf16_diff_share": res[2],
+                      "repeat_bitwise": repeat_bitwise})
+                if attn_failed(res):
+                    raise AssertionError(f"{ran} {name} {dt}: kernel and plain version "
+                                         f"differ beyond the tolerance: {res}")
+                if not repeat_bitwise:
+                    raise AssertionError(f"{ran} {name} {dt}: two launches on the same "
+                                         "inputs differ")
+                del got
+            if bf16 and name in DECODE_CONTROLS:
+                controls[name] = res = attn_compare(
+                    torch, rounded_w_decode(torch, kname, ops, kw), want, "fwd", True)
+                emit({"control": kname, "shape": name, "dims": shape,
+                      "what": "softmax weights rounded once to bf16",
+                      "max_abs_err": res[0], "worst_over_allowance": res[1],
+                      "bf16_diff_share": res[2], "fails": attn_failed(res)})
+            del ops, want
             free(torch)
+    passed = [n for n, r in controls.items() if not attn_failed(r)]
+    if passed or set(controls) != set(DECODE_CONTROLS):
+        raise AssertionError("decode: the rounded-weights control passes the bf16 check, "
+                             f"which then cannot tell the exact split apart: {passed}")
     return checks
 
 
 def decode_timings(torch, DA, gen, checks, kernels):
-    """14c's timings in bf16 at the two headline shapes: ``decode_attn`` at
-    olmo-1b's decode_32k layer (B = 16) and ``mla_decode_attn`` at
-    deepseek-v2's latent (B = 128), each beside its bound, its plain version
-    and one SDPA call on f32 copies with a boolean mask (the G query heads
-    of a kv head, or MLA's H heads over its one latent row, as the query
-    rows of one head; whichever backend SDPA picks), timed here and used
-    nowhere in the port."""
+    """14c's timings in bf16 at ``DECODE_TIMED``: the kernel ``DA.route``
+    picks and, where that is a tensor-core kernel, the CUDA-core kernel
+    beside it, each beside its bound, its plain version and one SDPA call
+    on f32 copies with a boolean mask (the G query heads of a kv head, or
+    MLA's H heads over its one latent row, as the query rows of one head;
+    whichever backend SDPA picks), timed here and used nowhere in the
+    port. Each timing lands in ``kernels`` under the kernel that ran it."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.decode_attn.ref import valid_slots
 
     dev = torch.device("cuda")
-    for kname, name in (("decode_attn", "olmo-1b decode_32k"),
-                        ("mla_decode_attn", "deepseek-v2 decode_32k")):
+    for kname, name, reps in DECODE_TIMED:
         if kname == "decode_attn":
             shape = DECODE_SHAPES[name]
             B, S, H, Hkv, D, window, kind, context = shape
             q, k, v, sp, qp = ops = decode_operands(torch, shape, torch.bfloat16, gen, dev)
-            kw, reps = dict(window=window), 20
+            kw = dict(window=window)
             kernel, plain = DA.decode_attn, DA.decode_attn_plain
             nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2 + (sp.numel() + B) * 8
             low = f32op = 2.0 * B * H * S * D
@@ -2407,7 +2518,7 @@ def decode_timings(torch, DA, gen, checks, kernels):
             B, S, H, r, dr, kind, context = shape
             qa, qr, ckv, kr, sp, qp = ops = mla_operands(torch, shape, torch.bfloat16,
                                                          gen, dev)
-            kw, reps = dict(qk_head_dim=MLA_QK_DIM), 3
+            kw = dict(qk_head_dim=MLA_QK_DIM)
             kernel, plain = DA.mla_decode_attn, DA.mla_decode_attn_plain
             nbytes = ((qa.numel() * 2 + qr.numel() + ckv.numel() + kr.numel()) * 2
                       + (sp.numel() + B) * 8)
@@ -2416,18 +2527,23 @@ def decode_timings(torch, DA, gen, checks, kernels):
             lk = torch.cat([ckv, kr], -1).float()[:, None]
             lv = ckv.float()[:, None]
             scale = 1.0 / math.sqrt(MLA_QK_DIM)
-        ms = cuda_ms(torch, lambda: kernel(*ops, **kw), reps)
         plain_ms = cuda_ms(torch, lambda: plain(*ops, **kw), 1)
         mask = valid_slots(sp, qp, kw.get("window", 0))[:, None, None]
         lib_ms = cuda_ms(torch, lambda: Fn.scaled_dot_product_attention(
             lq, lk, lv, attn_mask=mask, scale=scale), reps)
         b_ms, by = decode_bound(nbytes, low, f32op, 2)
-        kernels.setdefault(kname, {})[name] = entry = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
-            max_abs_err=checks[f"{name} bf16"][0], dims=shape, dtype="bfloat16",
-            bytes=nbytes, flops=low + f32op,
-            library="SDPA on f32 copies, boolean mask, default backend")
-        emit({"timing": kname, "shape": name, **entry})
+        routed = decode_route(DA, kname, shape, torch.bfloat16)
+        for ran in dict.fromkeys((routed, kname)):  # the routed kernel first
+            cc = ran == kname and routed != kname
+            # the CUDA-core kernel at MLA's latent takes ~136 ms a call
+            n = 2 if cc and kname == "mla_decode_attn" else reps
+            ms = cuda_ms(torch, lambda: kernel(*ops, **kw, cuda_cores=cc), n)
+            kernels.setdefault(ran, {})[name] = entry = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms,
+                max_abs_err=checks[f"{name} bf16" + (" cuda cores" if cc else "")][0],
+                dims=shape, dtype="bfloat16", bytes=nbytes, flops=low + f32op,
+                kernel=ran, library="SDPA on f32 copies, boolean mask, default backend")
+            emit({"timing": ran, "shape": name, **entry})
         del ops, lq, lk, lv, mask
         free(torch)
 
@@ -4012,11 +4128,16 @@ def main(argv):
                            "src/repro/models/attention.py:23"),
         "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
                            "src/repro/models/attention.py:23"),
-        # the reference's jnp decode_attention and mla_decode's latent einsums
+        # the reference's jnp decode_attention and mla_decode's latent
+        # einsums: the CUDA-core kernels, then the tensor-core ones
         "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
                         "src/repro/models/attention.py:85"),
         "mla_decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
                             "src/repro/models/attention.py:252"),
+        "decode_attn_tc": ("src/repro_torch/csrc/decode_attn_sm90.cu",
+                           "src/repro/models/attention.py:85"),
+        "mla_decode_attn_tc": ("src/repro_torch/csrc/decode_attn_sm90.cu",
+                               "src/repro/models/attention.py:252"),
     }
     # the headline numbers at the shape of the path each kernel came with;
     # every shape timed under "shapes"
@@ -4025,7 +4146,9 @@ def main(argv):
                    "bitpack": "resnet18", "flash_attn_fwd": "olmo-1b train_4k",
                    "flash_attn_bwd": "olmo-1b train_4k",
                    "decode_attn": "olmo-1b decode_32k",
-                   "mla_decode_attn": "deepseek-v2 decode_32k"}
+                   "mla_decode_attn": "deepseek-v2 decode_32k",
+                   "decode_attn_tc": "granite-34b decode_32k",
+                   "mla_decode_attn_tc": "deepseek-v2 decode_32k"}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name][first_shape[name]]

@@ -19,8 +19,10 @@
 // (1.283 ms a layer at decode_32k, B = 16); at granite-34b's G = 48 the
 // f32 CUDA cores (67 TFLOP/s) cannot keep up with the bytes. MLA:
 // operations. 128 heads share one latent row of r + dr = 576 bf16, so each
-// cache byte feeds ~128 flops; the tensor cores would bound it, these
-// kernels run on the CUDA cores in f32 (a right kernel first).
+// cache byte feeds ~128 flops. These kernels run on the CUDA cores, in f32
+// throughout: the wrappers take them for f32, for bf16 GQA at G = 1 and for
+// widths decode_attn_sm90.cu (the tensor-core kernels of bf16 MLA and bf16
+// GQA at G >= 2) does not take.
 //
 // Design: split-KV, two launches, no atomics. decode_split_kernel: a CTA of
 // 8 warps per (split of the S slots, kv head or MLA head chunk, batch row)
@@ -474,6 +476,22 @@ bool plan(Params& p, int nh, int ts, int elem, int* hpw_t, int* cpl_t, int* smem
   return *smem <= kMaxSmem;
 }
 
+// out[b, h] from the splits of the workspace (this kernel's and the
+// tensor-core kernels' of decode_attn_sm90.cu), in split order
+cudaError_t launch_merge(const float* ws_acc, const float* ws_ml, void* out, int B, int H,
+                         int nsplit, int Dv, bool bf16, cudaStream_t s) {
+  const dim3 mgrid(H, B);
+  const size_t msmem = static_cast<size_t>(nsplit) * sizeof(float);
+  if (msmem > 48 * 1024) return cudaErrorInvalidValue;
+  if (bf16)
+    decode_merge_kernel<__nv_bfloat16><<<mgrid, 128, msmem, s>>>(
+        ws_acc, ws_ml, static_cast<__nv_bfloat16*>(out), H, nsplit, Dv);
+  else
+    decode_merge_kernel<float><<<mgrid, 128, msmem, s>>>(
+        ws_acc, ws_ml, static_cast<float*>(out), H, nsplit, Dv);
+  return cudaGetLastError();
+}
+
 // the rows' chunk geometry and the slots' splits; then the two kernels
 cudaError_t launch(Params& p, int elem, bool bf16, bool mla, void* out, cudaStream_t s) {
   if (p.B < 1 || p.S < 1 || p.H < 1 || p.nsplit < 1 || p.B > 65535 || p.H > 65535)
@@ -508,16 +526,7 @@ cudaError_t launch(Params& p, int elem, bool bf16, bool mla, void* out, cudaStre
   cudaError_t e = bf16 ? by_hpw<__nv_bfloat16>(p, hpw_t, cpl_t, smem, grid, s)
                        : by_hpw<float>(p, hpw_t, cpl_t, smem, grid, s);
   if (e != cudaSuccess) return e;
-  const dim3 mgrid(p.H, p.B);
-  const size_t msmem = static_cast<size_t>(p.nsplit) * sizeof(float);
-  if (msmem > 48 * 1024) return cudaErrorInvalidValue;
-  if (bf16)
-    decode_merge_kernel<__nv_bfloat16><<<mgrid, 128, msmem, s>>>(
-        p.ws_acc, p.ws_ml, static_cast<__nv_bfloat16*>(out), p.H, p.nsplit, p.Dv);
-  else
-    decode_merge_kernel<float><<<mgrid, 128, msmem, s>>>(
-        p.ws_acc, p.ws_ml, static_cast<float*>(out), p.H, p.nsplit, p.Dv);
-  return cudaGetLastError();
+  return launch_merge(p.ws_acc, p.ws_ml, out, p.B, p.H, p.nsplit, p.Dv, bf16, s);
 }
 
 }  // namespace decode_attn

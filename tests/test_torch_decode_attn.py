@@ -168,6 +168,81 @@ def test_meta_tensors_report_the_reference_dot_flops():
                     ("mla_decode_attn", 2.0 * 2 * 4 * 24 * (2 * 32 + 8))]
 
 
+_ATTN_ARCHS = ["dbrx-132b", "deepseek-v2-236b", "granite-34b", "h2o-danube-3-4b",
+               "llava-next-34b", "musicgen-medium", "olmo-1b", "starcoder2-3b",
+               "zamba2-7b"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", _ATTN_ARCHS)
+def test_route_picks_the_tensor_cores_for_bf16_mla_and_g_at_least_2(arch, dtype):
+    """Every attention config at its decode widths: bf16 MLA and bf16 GQA
+    with G >= 2 take the tensor-core kernel; f32 and G = 1 the CUDA-core
+    kernel (olmo-1b, musicgen-medium and zamba2-7b's shared block)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.use_mla:
+        got = K.route(dtype, (cfg.kv_lora_rank, cfg.qk_rope_head_dim))
+        tc = True
+    else:
+        G = cfg.num_heads // cfg.num_kv_heads
+        got = K.route(dtype, (cfg.resolved_head_dim,), G)
+        tc = G >= 2
+    assert got == (K.TENSOR_CORES if tc and dtype == torch.bfloat16 else K.CUDA_CORES)
+
+
+@pytest.mark.parametrize("widths,group", [
+    ((36,), 4), ((132,), 4), ((256,), 8), ((4,), 2),  # GQA: not a multiple of 8, too wide
+    ((520, 64), None), ((512, 72), None), ((512, 20), None), ((512, 4), None),  # MLA
+])
+def test_route_keeps_the_widths_the_tensor_cores_lack_on_the_cuda_cores(widths, group):
+    assert K.route(torch.bfloat16, widths, group) == K.CUDA_CORES
+    with pytest.raises(ValueError, match="tensor-core kernel"):
+        if group is None:
+            r, dr = widths
+            K.mla_decode_attn_tc(*_mla_operands("meta", torch.bfloat16, r=r, dr=dr),
+                                 qk_head_dim=24)
+        else:
+            K.decode_attn_tc(*_gqa_operands("meta", torch.bfloat16, H=2 * group, D=widths[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_tensors_report_the_dot_flops_on_both_routes(dtype):
+    """f32 and G = 1 report as the CUDA-core kernels, bf16 G >= 2 and bf16 MLA
+    as the tensor-core kernels; every one the reference's dot flops, and
+    ``cuda_cores`` reports the CUDA-core kernel whatever the route."""
+    seen = []
+    _build.launch_observers.append(lambda name, nbytes, flops: seen.append((name, flops)))
+    try:
+        K.decode_attn(*_gqa_operands("meta", dtype))  # G = 2
+        K.decode_attn(*_gqa_operands("meta", dtype, Hkv=4))  # G = 1
+        K.decode_attn(*_gqa_operands("meta", dtype), cuda_cores=True)
+        K.mla_decode_attn(*_mla_operands("meta", dtype), qk_head_dim=24)
+        K.mla_decode_attn(*_mla_operands("meta", dtype), qk_head_dim=24, cuda_cores=True)
+    finally:
+        _build.launch_observers.pop()
+    tc = "_tc" if dtype == torch.bfloat16 else ""
+    gqa, mla = 4.0 * 2 * 4 * 24 * 16, 2.0 * 2 * 4 * 24 * (2 * 32 + 8)
+    assert seen == [("decode_attn" + tc, gqa), ("decode_attn", gqa), ("decode_attn", gqa),
+                    ("mla_decode_attn" + tc, mla), ("mla_decode_attn", mla)]
+
+
+def test_tensor_core_wrappers_take_the_plain_versions_on_the_cpu():
+    gqa = _gqa_operands("cpu", torch.bfloat16)
+    mla = _mla_operands("cpu", torch.bfloat16)
+    launches = K.decode_attn_tc.launches, K.mla_decode_attn_tc.launches
+    assert torch.equal(K.decode_attn_tc(*gqa, window=5),
+                       K.decode_attn_plain(*gqa, window=5))
+    assert torch.equal(K.mla_decode_attn_tc(*mla, qk_head_dim=24),
+                       K.mla_decode_attn_plain(*mla, qk_head_dim=24))
+    assert (K.decode_attn_tc.launches, K.mla_decode_attn_tc.launches) == launches
+    with pytest.raises(ValueError, match="tensor-core kernel"):  # f32
+        K.decode_attn_tc(*_gqa_operands("cpu"))
+    with pytest.raises(ValueError, match="tensor-core kernel"):  # G = 1
+        K.decode_attn_tc(*_gqa_operands("cpu", torch.bfloat16, Hkv=4))
+
+
 @pytest.mark.parametrize("arch", ["olmo-1b", "h2o-danube-3-4b", "deepseek-v2-236b",
                                   "zamba2-7b"])
 def test_dryrun_decode_flops_are_the_plain_versions(arch, monkeypatch):
@@ -208,6 +283,12 @@ def test_decode_wrappers_refuse_what_the_kernels_do_not_take(device):
             K.decode_attn(*ops)
     with pytest.raises(ValueError):
         K.decode_attn(q, k, v, sp, qp, window=-1)
+    for fn in (K.decode_attn, K.decode_attn_tc):  # bf16: either kernel's route
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        for ops in [(qb[:, :, :3], kb, vb, sp, qp), (qb, kb, vb, sp[:, :5], qp),
+                    (qb[..., :15], kb[..., :15], vb[..., :15], sp, qp)]:
+            with pytest.raises(ValueError):
+                fn(*ops)
     qa, qr, ckv, kr, sp, pos = _mla_operands(device)
     for ops in [(qa, qr[:, :1], ckv, kr, sp, pos),  # q_rope heads
                 (qa[..., :30], qr, ckv[..., :30], kr, sp, pos),  # r not 16 bytes

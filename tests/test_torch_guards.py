@@ -516,8 +516,10 @@ def test_decode_wrappers_launch_their_kernels_for_cuda_tensors(monkeypatch):
     """``decode_attention`` and ``mla_decode``'s latent part on CUDA tensors
     (fake ones: no card here) go to the kernels' C entries, stubbed, with
     the problem's sizes and a workspace of the splits, and count one launch
-    each call; a failed launch or a library that cannot be built raises:
-    nothing falls back to the plain version."""
+    each call on the kernel the route picks (bf16 G = 4 and bf16 MLA: the
+    tensor-core entries; f32: the CUDA-core ones); a failed launch or a
+    library that cannot be built raises: nothing falls back to the other
+    kernel or the plain version."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.kernels import _build
@@ -535,9 +537,19 @@ def test_decode_wrappers_launch_their_kernels_for_cuda_tensors(monkeypatch):
             calls.append(("mla", args[9:-1]))
             return rc[0]
 
+        def rt_decode_attn_tc(self, *args):
+            calls.append(("gqa tc", args[8:-1]))
+            return rc[0]
+
+        def rt_mla_decode_attn_tc(self, *args):
+            calls.append(("mla tc", args[9:-1]))
+            return rc[0]
+
     monkeypatch.setattr(_build, "library", Stub)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    launches = DA.decode_attn.launches, DA.mla_decode_attn.launches
+    counters = (DA.decode_attn, DA.mla_decode_attn, DA.decode_attn_tc,
+                DA.mla_decode_attn_tc)
+    launches = [fn.launches for fn in counters]
 
     def attend(dtype=torch.bfloat16):
         with FakeTensorMode():
@@ -558,15 +570,26 @@ def test_decode_wrappers_launch_their_kernels_for_cuda_tensors(monkeypatch):
     assert lat.shape == (2, 40, 64) and lat.dtype == torch.bfloat16
     nsplit = DA.num_splits(2, 2, 4096)
     assert 1 < nsplit <= 4096 // DA.MIN_SPAN
-    assert calls[0] == ("gqa", (2, 4096, 8, 2, 120, 4096, nsplit,
-                                pytest.approx(1.0 / np.sqrt(120)), 1))
-    assert calls[1] == ("mla", (2, 4096, 40, 64, 16, DA.num_splits(2, 2, 4096),
-                                pytest.approx(np.sqrt(48)), 1))
-    assert (DA.decode_attn.launches, DA.mla_decode_attn.launches) == (
-        launches[0] + 1, launches[1] + 1)
+    # the tensor-core entries take no dtype flag: bf16 only
+    assert calls[0] == ("gqa tc", (2, 4096, 8, 2, 120, 4096, nsplit,
+                                   pytest.approx(1.0 / np.sqrt(120))))
+    assert calls[1] == ("mla tc", (2, 4096, 40, 64, 16, DA.num_splits(2, 1, 4096),
+                                   pytest.approx(np.sqrt(48))))
+    assert [fn.launches for fn in counters] == [
+        launches[0], launches[1], launches[2] + 1, launches[3] + 1]
+    out, lat = attend(torch.float32)
+    assert calls[2] == ("gqa", (2, 4096, 8, 2, 120, 4096, nsplit,
+                                pytest.approx(1.0 / np.sqrt(120)), 0))
+    assert calls[3] == ("mla", (2, 4096, 40, 64, 16, DA.num_splits(2, 2, 4096),
+                                pytest.approx(np.sqrt(48)), 0))
+    assert [fn.launches for fn in counters] == [
+        launches[0] + 1, launches[1] + 1, launches[2] + 1, launches[3] + 1]
     rc[0] = 719  # cudaErrorLaunchFailure
+    with pytest.raises(RuntimeError, match="decode_attn_tc failed to launch"):
+        attend()
     with pytest.raises(RuntimeError, match="decode_attn failed to launch"):
         attend(torch.float32)
+    assert len(calls) == 6  # the refused tensor-core launch tried no other kernel
 
     def unbuildable():
         raise RuntimeError("nvcc not found")
