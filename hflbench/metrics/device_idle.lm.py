@@ -1,0 +1,8 @@
+"""Share of a round with no operation on the device: the profiled rounds'
+busy time against the time of one in the window that follows them."""
+from hflbench.metrics import _yardstick as y
+
+
+def read(ctx):
+    i = ctx.info
+    return y.idle_share(ctx.trace, i["trace_rounds"], i["window_s"] / i["rounds"])
