@@ -544,6 +544,13 @@ def kernel_split(torch, fn, reps, flush=None):
             for k in ("slice_hist_kernel", "tile_order_sum_kernel")}
 
 
+def fused_outcomes(reg):
+    """(calls the block_select candidates answered, calls the exact fallback
+    answered) of ``select_topk_rows``, from the registry's count."""
+    c = reg.counter("fused.select_calls")
+    return int(c.value(outcome="candidates")), int(c.value(outcome="fallback"))
+
+
 def split_by_hop(outcomes, steps, n_mus, n_clusters, period):
     """Per hop, how many fused selections the candidates answered and how
     many the exact fallback did. A faithful step selects in a fixed order:
@@ -2722,6 +2729,8 @@ def main(argv):
         from repro_torch.launch import train
         from repro_torch.models.resnet import init_resnet18
         from repro_torch.models.transformer import init_model
+        from repro_torch.obs import MetricsRegistry, SpanTracer, use_registry
+        from repro_torch.obs.spans import use_tracer
         from repro_torch.sim import engine as E
         from repro_torch.utils import flatten as fl
         from repro_torch.utils.tree import tree_leaves
@@ -2975,7 +2984,6 @@ def main(argv):
     check_tail_hist(gt, lin_edges(gt, 64), "resnet18 gradient", "resnet18 gradient")
     del gt
     phi_f = PAPER.hfl.tiers[0].phi_up
-    sel = fops.select_topk_rows
     cap_f = fops.candidate_capacity(Qf, kf)
     cap_blk_f = fops.tile_capacity(Qf, cap_f)
     ramp = torch.arange(Qf, device=dev, dtype=torch.float32) / Qf
@@ -2991,12 +2999,13 @@ def main(argv):
         m = int(got[2].sum())
         overflowed = int((got[2][:, 0] > cap_blk_f).sum())
         answers = kf <= m <= cap_f and not overflowed
-        n0 = len(sel.outcomes)
-        sent, mask = sp.omega(x, phi_f, impl="fused")
-        torch.cuda.synchronize()
-        if sel.outcomes[n0:] != [answers]:
-            raise AssertionError(f"omega fused[{name}]: took {sel.outcomes[n0:]}, "
-                                 f"the tile counts decide {answers}")
+        with use_registry(MetricsRegistry()) as reg:
+            sent, mask = sp.omega(x, phi_f, impl="fused")
+            torch.cuda.synchronize()
+        took = fused_outcomes(reg)
+        if took != ((1, 0) if answers else (0, 1)):
+            raise AssertionError(f"omega fused[{name}]: took (candidates, fallback) "
+                                 f"{took}, the tile counts decide {answers}")
         want_sent, want_mask = sp.omega(x.cpu(), phi_f, impl="fused")
         same_bits(torch, [sent.cpu()], [want_sent], f"omega fused[{name}]")
         same(torch, [mask.cpu()], [want_mask], f"omega fused[{name}] mask")
@@ -3090,10 +3099,10 @@ def main(argv):
 
     # ---- 3. fused selection on [2, Q] -------------------------------------
     S = rand(N_CLUSTERS, Q)
-    fb0 = fops.select_topk_rows.fallbacks
-    vals, idx = fops.select_topk_rows(S, k_ul)
-    torch.cuda.synchronize()
-    took_kernel_path = fops.select_topk_rows.fallbacks == fb0
+    with use_registry(MetricsRegistry()) as reg:
+        vals, idx = fops.select_topk_rows(S, k_ul)
+        torch.cuda.synchronize()
+    took_kernel_path = fused_outcomes(reg) == (1, 0)
     if not took_kernel_path:
         raise AssertionError("select_topk_rows: the gaussian matrix took the "
                              "exact fallback, not the block_select candidates")
@@ -3153,22 +3162,21 @@ def main(argv):
 
         free(torch)
         torch.cuda.reset_peak_memory_stats()
-        fin0, fb0 = fops.select_topk_rows.finished, fops.select_topk_rows.fallbacks
         for fn in (*counters.values(), *attn_counters.values()):
             fn.launches = 0
         args = train.parse_args(MAIN_ARGV + ["--omega-impl", impl])
-        if profile_dir is not None:
-            out = profiled(torch, lambda: train.run(args, on_sync=on_sync),
-                           profile_dir / f"profile_{impl}.txt")
-        else:
-            out = train.run(args, on_sync=on_sync)
-        torch.cuda.synchronize()
+        with use_registry(MetricsRegistry()) as reg:
+            if profile_dir is not None:
+                out = profiled(torch, lambda: train.run(args, on_sync=on_sync),
+                               profile_dir / f"profile_{impl}.txt")
+            else:
+                out = train.run(args, on_sync=on_sync)
+            torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in {**counters, **attn_counters}.items()}
         peak = torch.cuda.max_memory_allocated()
         # which selections the block_select candidates answered, and which
         # the exact fallback answered after the kernel ran
-        finished = fops.select_topk_rows.finished - fin0
-        fallbacks = fops.select_topk_rows.fallbacks - fb0
+        finished, fallbacks = fused_outcomes(reg)
         emit({"phase": "main_path", "impl": impl, "arch": cfg.name,
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "tiers": MAIN_ARGV[2], "steps": STEPS, "syncs": syncs,
@@ -3228,19 +3236,22 @@ def main(argv):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        n0 = len(sel.outcomes)
         run = lambda: pa.run(f"faithful {impl}", hfl_f, F_STEPS,
                              batch_per_mu=PAPER.batch_per_mu, lr=F_LR, seed=0,
                              width=PAPER.width, device="cuda",
                              omega_impl=impl, on_step=on_step)
-        if profile_dir is not None:
-            out = profiled(torch, run, profile_dir / f"profile_faithful_{impl}.txt")
-        else:
-            out = run()
-        torch.cuda.synchronize()
+        # the selections' outcomes in call order: the fused.select.* spans
+        with use_tracer(SpanTracer()) as tracer:
+            if profile_dir is not None:
+                out = profiled(torch, run, profile_dir / f"profile_faithful_{impl}.txt")
+            else:
+                out = run()
+            torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
         by_path[f"faithful {impl}"] = launches
-        outcomes = sel.outcomes[n0:]
+        outcomes = [e["name"] == "fused.select.candidates"
+                    for e in sorted(tracer.events, key=lambda e: e["ts"])
+                    if e["name"].startswith("fused.select.")]
         if len(outcomes) != (want_f if impl == "fused" else 0):
             raise AssertionError(f"faithful {impl}: {len(outcomes)} fused "
                                  f"selections, want {want_f} with fused only")

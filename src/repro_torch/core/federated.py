@@ -32,6 +32,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import sparsify as sp
+from repro_torch.obs.spans import span
 from repro_torch.utils.fp import axpy_, fma_f32, recip_f32
 
 
@@ -75,11 +76,13 @@ class FaithfulHFL:
         axis K (one slice per MU). Returns ``loss`` (mean training loss
         over the MUs; NaN with only ``grad_fn``) and ``sparse_grad_abs``
         (mean |ĝ_n| of the SBS aggregates), as floats."""
-        self.state, metrics = _hfl_iteration(
-            self.state, batches, grad_fn=self.grad_fn, loss_fn=self.loss_fn,
-            hfl=self.hfl_cfg, lr_schedule=self.lr_schedule,
-            impl=self.sparsify_impl)
-        return {k: float(v) for k, v in metrics.items()}
+        with span("faithful.iteration", self.state["t"]):
+            self.state, metrics = _hfl_iteration(
+                self.state, batches, grad_fn=self.grad_fn, loss_fn=self.loss_fn,
+                hfl=self.hfl_cfg, lr_schedule=self.lr_schedule,
+                impl=self.sparsify_impl)
+        with span("wait.readback"):
+            return {k: float(v) for k, v in metrics.items()}
 
     @property
     def global_model(self):
@@ -137,42 +140,47 @@ def _hfl_iteration(state, batches, *, grad_fn, loss_fn, hfl, lr_schedule, impl):
         ghats = []
         for m in range(M):
             k = n * M + m
-            g, loss = _mu_grad(state["w_tilde_n"][n], _take(batches, k),
-                               grad_fn, loss_fn)
+            with span("faithful.mu_pass"):
+                g, loss = _mu_grad(state["w_tilde_n"][n], _take(batches, k),
+                                   grad_fn, loss_fn)
             if loss is not None:
                 losses.append(loss)
-            gk, u[k], v[k] = sp.dgc_step(state["u"][k], state["v"][k], g,
-                                         hfl.momentum, tier0.phi_up, impl=impl)
+            with span("faithful.dgc"):
+                gk, u[k], v[k] = sp.dgc_step(state["u"][k], state["v"][k], g,
+                                             hfl.momentum, tier0.phi_up, impl=impl)
             ghats.append(gk)
-        ghat_n.append(_sum_rows(ghats).mul_(recip_f32(M)))  # jnp.mean
+        with span("faithful.sbs"):  # the SBS's mean of its MUs' ĝ
+            ghat_n.append(_sum_rows(ghats).mul_(recip_f32(M)))  # jnp.mean
 
     # ---- SBS aggregation + model update + sparse downlink to MUs ----
     w_tilde_n, e_n = torch.empty_like(state["w_tilde_n"]), torch.empty_like(state["e_n"])
-    for n in range(N):
-        w = state["w_tilde_n"][n]
-        # target = (w - lr·ĝ_n) + β_s·e_n, each add one fused multiply-add
-        target = fma_f32(tier1.beta_up, state["e_n"][n], fma_f32(-lr, ghat_n[n], w))
-        sent, e_n[n] = _hop(target - w, tier0.phi_down, impl)
-        w_tilde_n[n] = w + sent
+    with span("faithful.sbs"):
+        for n in range(N):
+            w = state["w_tilde_n"][n]
+            # target = (w - lr·ĝ_n) + β_s·e_n, each add one fused multiply-add
+            target = fma_f32(tier1.beta_up, state["e_n"][n], fma_f32(-lr, ghat_n[n], w))
+            sent, e_n[n] = _hop(target - w, tier0.phi_down, impl)
+            w_tilde_n[n] = w + sent
 
     # ---- every H: SBS <-> MBS global consensus (Alg. 5 l.22-39) ----
     t_new = state["t"] + 1
     eps_n, w_ref, e = state["eps_n"], state["w_ref"], state["e"]
     if t_new % tier1.period == 0:
-        eps_n, sent_n = torch.empty_like(eps_n), []
-        for n in range(N):
-            dn = axpy_(w_tilde_n[n] - w_ref, tier1.beta_up, state["eps_n"][n])
-            sent, eps_n[n] = _hop(dn, tier1.phi_up, impl)
-            sent_n.append(sent)
-        # δ = Σ sent_n / N + β_m·e: the mean's reciprocal multiply fused
-        delta = fma_f32(recip_f32(N), _sum_rows(sent_n), e * tier1.beta_down)
-        d, e = _hop(delta, tier1.phi_down, impl)
-        w_ref = w_ref + d
-        # MBS -> SBS -> MU downlink of the new reference (sparse dl hop)
-        for n in range(N):
-            dn = axpy_(w_ref - w_tilde_n[n], tier1.beta_up, e_n[n])
-            sent, e_n[n] = _hop(dn, tier0.phi_down, impl)
-            w_tilde_n[n] = w_tilde_n[n] + sent
+        with span("faithful.consensus"):
+            eps_n, sent_n = torch.empty_like(eps_n), []
+            for n in range(N):
+                dn = axpy_(w_tilde_n[n] - w_ref, tier1.beta_up, state["eps_n"][n])
+                sent, eps_n[n] = _hop(dn, tier1.phi_up, impl)
+                sent_n.append(sent)
+            # δ = Σ sent_n / N + β_m·e: the mean's reciprocal multiply fused
+            delta = fma_f32(recip_f32(N), _sum_rows(sent_n), e * tier1.beta_down)
+            d, e = _hop(delta, tier1.phi_down, impl)
+            w_ref = w_ref + d
+            # MBS -> SBS -> MU downlink of the new reference (sparse dl hop)
+            for n in range(N):
+                dn = axpy_(w_ref - w_tilde_n[n], tier1.beta_up, e_n[n])
+                sent, e_n[n] = _hop(dn, tier0.phi_down, impl)
+                w_tilde_n[n] = w_tilde_n[n] + sent
 
     new_state = {"w_tilde_n": w_tilde_n, "u": u, "v": v, "e_n": e_n,
                  "eps_n": eps_n, "w_ref": w_ref, "e": e, "t": t_new}

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.core import sparsify as sp
 from repro_torch.obs.metrics import current_registry
+from repro_torch.obs.spans import span
 from repro_torch.utils import flatten as fl
 from repro_torch.utils.fp import axpy_, fma_f32, recip_f32
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -109,12 +110,16 @@ def _train_row(state: HFLState, n: int, batch_n, loss_fn, optimizer, lr):
     leaves, treedef = tree_flatten(p_n)
     req = [l.detach().requires_grad_(True) for l in leaves]
     with torch.enable_grad():
-        loss, _aux = loss_fn(tree_unflatten(treedef, req), batch_n)
-        grads = torch.autograd.grad(loss, req, allow_unused=True)
+        with span("hfl.train.forward", state.step):
+            loss, _aux = loss_fn(tree_unflatten(treedef, req), batch_n)
+        # under remat this includes the forward's recompute
+        with span("hfl.train.backward", state.step):
+            grads = torch.autograd.grad(loss, req, allow_unused=True)
     # unused leaves (the norm placeholders) get zero grads, as in jax
     grads = [torch.zeros_like(r) if g is None else g
              for g, r in zip(grads, req)]
-    optimizer.update(tree_unflatten(treedef, grads), _row(state.opt, n), p_n, lr)
+    with span("hfl.train.optimizer", state.step):
+        optimizer.update(tree_unflatten(treedef, grads), _row(state.opt, n), p_n, lr)
     return loss.detach()
 
 
@@ -132,18 +137,19 @@ def make_cluster_train_step(loss_fn: Callable, optimizer, lr_schedule):
     _count_build("train_step", masked="no")
 
     def train_step(state: HFLState, batch, keep=None):
-        lr = lr_schedule(state.step)
-        N = tree_leaves(state.params)[0].shape[0]
-        losses = []
-        for n in range(N):
-            if keep is not None and not keep[n]:
-                with torch.no_grad():
-                    loss, _aux = loss_fn(_row(state.params, n), _row(batch, n))
-                losses.append(loss.detach())
-                continue
-            losses.append(_train_row(state, n, _row(batch, n), loss_fn,
-                                     optimizer, lr))
-        return state._replace(step=state.step + 1), torch.stack(losses)
+        with span("hfl.train_step", state.step):
+            lr = lr_schedule(state.step)
+            N = tree_leaves(state.params)[0].shape[0]
+            losses = []
+            for n in range(N):
+                if keep is not None and not keep[n]:
+                    with torch.no_grad():
+                        loss, _aux = loss_fn(_row(state.params, n), _row(batch, n))
+                    losses.append(loss.detach())
+                    continue
+                losses.append(_train_row(state, n, _row(batch, n), loss_fn,
+                                         optimizer, lr))
+            return state._replace(step=state.step + 1), torch.stack(losses)
 
     return train_step
 
@@ -266,10 +272,12 @@ def _uplinks_(tc, impl: str, wire, drifts, acc, on_up=None):
     ``acc`` and each row is left holding its residual s - sent.
     ``on_up(values, indices)`` sees every payload as selected."""
     for s in drifts:
-        vals, idx = _payload(s, tc.phi_up, impl, wire)
+        with span("hfl.sync.select_up"):
+            vals, idx = _payload(s, tc.phi_up, impl, wire)
         if on_up is not None:
             on_up(vals, idx)
-        _scatter_rows(acc, s[None], idx.long()[None], vals[None])
+        with span("hfl.sync.scatter"):
+            _scatter_rows(acc, s[None], idx.long()[None], vals[None])
 
 
 def _group_(tc, impl: str, wire, drifts, err_row, acc, on_up=None):
@@ -317,38 +325,43 @@ def flat_sync_payloads(hfl_cfg, params, wref, e, s, spec, on_up=None):
     wire = wire_format_of(hfl_cfg)
     tier = hfl_cfg.tiers[1]
     N, Q = s.shape
-    _pack_drift(s, params, wref, tier.beta_up, spec)
+    with span("hfl.sync.drift"):
+        _pack_drift(s, params, wref, tier.beta_up, spec)
     if impl == "fused":
         from repro_torch.kernels.fused_sync import ops as fops
 
         # the N uplink Ωs are one select_topk_rows call; Σ sent is allocated
         # after it, outside the selection's peak
-        vals, idx = fops.select_topk_rows(s, sp.keep_count(Q, tier.phi_up))
-        if wire:
-            vals = _wire_round_rows(vals, wire)
+        with span("hfl.sync.select_up"):
+            vals, idx = fops.select_topk_rows(s, sp.keep_count(Q, tier.phi_up))
+            if wire:
+                vals = _wire_round_rows(vals, wire)
         if on_up is not None:
             for v, i in zip(vals, idx):
                 on_up(v, i)
-        # the reference's _scatter_rows clips pad indices (value 0) to Q-1
-        idx = idx.long().clamp_max(Q - 1)
-        acc = torch.zeros((Q,), dtype=torch.float32, device=s.device)
-        _scatter_rows(acc, s, idx, vals)
-        del vals, idx
+        with span("hfl.sync.scatter"):
+            # the reference's _scatter_rows clips pad indices (value 0) to Q-1
+            idx = idx.long().clamp_max(Q - 1)
+            acc = torch.zeros((Q,), dtype=torch.float32, device=s.device)
+            _scatter_rows(acc, s, idx, vals)
+            del vals, idx
     else:
         # whole-vector Ω uplinks; Σ sent in Python's left fold
         acc = torch.zeros((Q,), dtype=torch.float32, device=s.device)
         _uplinks_(tier, impl, wire, s, acc, on_up)
     # MBS side: consensus + discounted error + Ω downlink
-    _consensus_delta(e, acc, N, tier.beta_down)
-    del acc
-    if impl != "fused":
-        dvals, didx = _payload(e, tier.phi_down, impl, wire)
+    with span("hfl.sync.delta"):
+        _consensus_delta(e, acc, N, tier.beta_down)
+        del acc
+    with span("hfl.sync.select_down"):
+        if impl != "fused":
+            dvals, didx = _payload(e, tier.phi_down, impl, wire)
+            return dvals, didx.long()
+        dvals, didx = fops.select_topk_rows(e[None, :], sp.keep_count(Q, tier.phi_down))
+        dvals, didx = dvals[0], didx[0]
+        if wire:
+            dvals = _wire_round_rows(dvals, wire)
         return dvals, didx.long()
-    dvals, didx = fops.select_topk_rows(e[None, :], sp.keep_count(Q, tier.phi_down))
-    dvals, didx = dvals[0], didx[0]
-    if wire:
-        dvals = _wire_round_rows(dvals, wire)
-    return dvals, didx.long()
 
 
 def _norm(x):
@@ -402,23 +415,25 @@ def _make_flat_sync(hfl_cfg, collect_stats: bool = False):
     N = hfl_cfg.num_clusters
 
     def flat_sync(state: HFLState):
-        wref, e, s, ref_spec, eps_spec = _sync_buffers(state, N)
-        ul_idx = on_up = drift = None
-        if collect_stats:
-            drift = _drift_stats(state.params)[0]
-            # the uplinks' index sets only (int32: Q < 2^31), row by row
-            k = sp.keep_count(ref_spec.total, hfl_cfg.tiers[1].phi_up)
-            ul_idx = torch.empty((N, k), dtype=torch.int32, device=s.device)
-            rows = iter(ul_idx)
-            on_up = lambda v, i: next(rows).copy_(i)
-        dvals, didx = flat_sync_payloads(hfl_cfg, state.params, wref, e, s,
-                                         ref_spec, on_up=on_up)
-        wref.index_add_(0, didx, dvals)  # new w_ref = w_ref + d
-        e.index_add_(0, didx, -dvals)    # new e = δ - d
-        state = _unpack_ref_outputs(state, wref, e, s, ref_spec, eps_spec)
-        if not collect_stats:
-            return state
-        return state, _flat_sync_stats(drift, s, e, wref, dvals, ul_idx, didx)
+        with span("hfl.sync", state.step):
+            wref, e, s, ref_spec, eps_spec = _sync_buffers(state, N)
+            ul_idx = on_up = drift = None
+            if collect_stats:
+                drift = _drift_stats(state.params)[0]
+                # the uplinks' index sets only (int32: Q < 2^31), row by row
+                k = sp.keep_count(ref_spec.total, hfl_cfg.tiers[1].phi_up)
+                ul_idx = torch.empty((N, k), dtype=torch.int32, device=s.device)
+                rows = iter(ul_idx)
+                on_up = lambda v, i: next(rows).copy_(i)
+            dvals, didx = flat_sync_payloads(hfl_cfg, state.params, wref, e, s,
+                                             ref_spec, on_up=on_up)
+            with span("hfl.sync.adopt"):
+                wref.index_add_(0, didx, dvals)  # new w_ref = w_ref + d
+                e.index_add_(0, didx, -dvals)    # new e = δ - d
+                state = _unpack_ref_outputs(state, wref, e, s, ref_spec, eps_spec)
+            if not collect_stats:
+                return state
+            return state, _flat_sync_stats(drift, s, e, wref, dvals, ul_idx, didx)
 
     return flat_sync
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.obs.spans import span
 from repro_torch.utils.fp import fma_f32
 
 _TINY = float(np.finfo(np.float32).tiny)
@@ -53,10 +54,11 @@ def _kth_key(keys, k: int):
         digit = (cand >> shift) & ((1 << width) - 1)
         hist = torch.bincount(digit, minlength=1 << width)
         ge = hist.flip(0).cumsum(0).flip(0)  # #digits >= d
-        d = int((ge >= k).nonzero().max())
-        k -= int(ge[d] - hist[d])  # keys with a larger digit are all in
-        prefix |= d << shift
-        cand = cand[digit == d]
+        with span("wait.topk"):  # the digit, the count and the survivors' size
+            d = int((ge >= k).nonzero().max())
+            k -= int(ge[d] - hist[d])  # keys with a larger digit are all in
+            prefix |= d << shift
+            cand = cand[digit == d]
     return prefix, k
 
 
@@ -68,7 +70,8 @@ def first_true(mask, k: int):
     for start in range(0, mask.numel(), _CHUNK):
         if got >= k:
             break
-        p = mask[start:start + _CHUNK].nonzero().squeeze(1)[:k - got] + start
+        with span("wait.first_true"):  # nonzero reads its count
+            p = mask[start:start + _CHUNK].nonzero().squeeze(1)[:k - got] + start
         out.append(p)
         got += p.numel()
     if not out:
@@ -84,12 +87,14 @@ def stable_topk_positions(x, k: int):
     if x.device.type == "meta":  # no values to rank: the positions' shape
         return torch.empty((k,), dtype=torch.int64, device=x.device)
     keys = _abs_keys(x.reshape(-1))
-    nnz = int(torch.count_nonzero(keys))
+    with span("wait.topk"):
+        nnz = int(torch.count_nonzero(keys))
     if nnz <= k:  # all nonzeros are in, then the first zeros: t = 0
         t, need = 0, k - nnz
     else:
         t, need = _kth_key(keys, k)
-    gt = (keys > t).nonzero().squeeze(1)
+    with span("wait.topk"):
+        gt = (keys > t).nonzero().squeeze(1)
     order = torch.sort(-keys[gt], stable=True).indices
     return torch.cat([gt[order], first_true(keys == t, need)])
 
@@ -129,7 +134,9 @@ def mask_at_least_k(x, th, k: int):
     t = torch.clamp_min(torch.as_tensor(th, dtype=torch.float32,
                                         device=x.device), _TINY)
     base = x.abs().float() >= t
-    if int(base.sum()) < k:
+    with span("wait.mask_count"):
+        short = int(base.sum()) < k
+    if short:
         base.reshape(-1)[:k] = True
     return base
 

@@ -13,11 +13,14 @@ branches; on CUDA it always runs the kernel pipeline (threshold ->
 selection, bit-identical to ``lax.top_k`` including ties.
 
 The exactness check ``ok`` (a ``lax.cond`` in the reference) is a host
-branch here, one device->host sync per row: rows are compacted (every
-row, as the reference launches the kernel for every row), checked and
-finished one at a time, so only one row's candidate buffer is alive at
-full model size, and rows of a batch bound for the exact path are not
-finished.
+branch here, one device->host sync per row (``wait.fused_rows``) until a
+row fails it: rows are compacted (every row, as the reference launches the
+kernel for every row), checked and finished one at a time, so only one
+row's candidate buffer is alive at full model size, and rows of a batch
+bound for the exact path are not finished. Each call ends in one outcome,
+``candidates`` or ``fallback``: a span ``fused.select.<outcome>`` around
+the answer's last step (the rows' concatenation, or the exact path) and a
+count of ``fused.select_calls{outcome=...}`` in the ambient registry.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from repro_torch.core.sparsify import (
     first_true, keep_count, linear_edges, stable_topk_positions,
 )
 from repro_torch.kernels.fused_sync import kernel as K
+from repro_torch.obs.metrics import current_registry
+from repro_torch.obs.spans import span
 
 _TINY = float(np.finfo(np.float32).tiny)
 _BINS = 128
@@ -151,24 +156,23 @@ def select_topk_rows(S, k: int, *, bins: int = _BINS, sample: int = _SAMPLE,
     vals, idx, ok = [], [], True
     for r in range(R):  # one row's candidates alive at a time
         vals_c, idx_c, m, overflow = compact(S[r:r + 1], th[r:r + 1], cap)
-        ok = ok and bool(((m >= k) & (m <= cap) & ~overflow).all())  # host sync
+        if ok:
+            with span("wait.fused_rows"):
+                ok = bool(((m >= k) & (m <= cap) & ~overflow).all())
         if ok:  # a batch bound for the exact path is not finished first
             v, i = _finish_topk(vals_c, idx_c, k)
             vals.append(v)
             idx.append(i)
-    select_topk_rows.outcomes.append(ok)
-    if ok:
-        select_topk_rows.finished += 1
-        return torch.cat(vals), torch.cat(idx)
-    # the reference's lax.cond: any row outside [k, cap] (or a tile that
-    # overflowed) sends the whole batch to the exact path
-    select_topk_rows.fallbacks += 1
-    return _exact_sort_rows(S, k)
-
-
-select_topk_rows.finished = 0   # calls answered from the candidates
-select_topk_rows.fallbacks = 0  # calls that took the exact fallback
-select_topk_rows.outcomes = []  # one bool per call, in order: candidates answered
+    # one outcome a call: its span (read by the benchmark) and its count
+    # (``fused.select_calls`` of the ambient registry)
+    outcome = "candidates" if ok else "fallback"
+    current_registry().counter("fused.select_calls").inc(outcome=outcome)
+    with span("fused.select." + outcome):
+        if ok:  # the rows finished from their candidates
+            return torch.cat(vals), torch.cat(idx)
+        # the reference's lax.cond: any row outside [k, cap] (or a tile that
+        # overflowed) sends the whole batch to the exact path
+        return _exact_sort_rows(S, k)
 
 
 def fused_pack_phi(x, phi: float, *, interpret=None, **kw):

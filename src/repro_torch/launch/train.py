@@ -100,6 +100,7 @@ from repro_torch.models.transformer import forward, init_model
 from repro_torch.obs import (
     ObsConfig, RunLogger, StepClock, current_registry, make_telemetry, use_registry,
 )
+from repro_torch.obs.spans import current_tracer, use_tracer
 from repro_torch.optim import SGDM, warmup_step_decay
 
 EVAL_CHUNK_TOKENS = 8192  # the held-out eval's rows per forward: this many tokens
@@ -219,10 +220,11 @@ def run(args, *, on_sync=None, wrap_train_step=None,
     (instrumentation hooks). Returns hist (mean loss per step; the active
     cluster's per async event), eval_loss, timing, the per-sync seconds
     and the simulator's trace and engine (None without ``--scenario``),
-    and ``telemetry``, the run's telemetry handle, whose registry is the
-    ambient one (``obs.current_registry``) only while the run lasts: a
-    later run or test in the process does not emit into it."""
-    with use_registry(current_registry()):
+    and ``telemetry``, the run's telemetry handle, whose registry and
+    tracer are the ambient ones (``obs.current_registry``,
+    ``obs.current_tracer``) only while the run lasts: a later run or test
+    in the process does not emit into them."""
+    with use_registry(current_registry()), use_tracer(current_tracer()):
         return _run(args, on_sync, wrap_train_step, wrap_masked_step)
 
 

@@ -25,6 +25,23 @@ per-link sums match the ledger bit-for-bit (same addends, same order) —
 that is the engine-teardown conservation check, and it survives the JSON
 round-trip (``json`` floats round-trip exactly).
 
+Program spans. ``span(name, args)`` marks a layer of the port's own code
+(the train step, the flat sync, the paper engine, each blocking
+device->host read) at no cost when nothing listens: while
+``torch.profiler`` records, it is a ``record_function`` mark, which lands
+in the profiler's trace as a ``user_annotation`` event on the device
+trace's clock, nested under the span open around it; while a
+``Telemetry`` with host spans is installed (``set_tracer``), it is also a
+host event of the ambient tracer; otherwise the shared ``NULL_SPAN``.
+``SpanTracer.host_span`` (the engine's step calls) is the same span with
+its tracer given. ``args`` is the HFL step index (or a dict of event args):
+the tracer's event carries it, and ``record_function`` is handed it as
+its string argument (torch's Chrome export leaves that out: there a
+step's spans are grouped by nesting under the step's own span).
+``metadata["host_epoch_ns"]`` of the export is the epoch time of the host
+clock's zero, so a host track lays over a profiler trace, whose events
+sit at ``ts + baseTimeNanoseconds``.
+
 The export is the plain Chrome trace-event JSON object format —
 ``{"traceEvents": [...], "metadata": {...}}`` — loadable in
 ``chrome://tracing`` and Perfetto. ``validate_trace`` checks the schema
@@ -32,8 +49,11 @@ The export is the plain Chrome trace-event JSON object format —
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
+
+import torch
 
 VIRTUAL_PID = 1
 HOST_PID = 2
@@ -42,24 +62,40 @@ PROCESS_NAMES = {VIRTUAL_PID: "virtual clock (HCN)", HOST_PID: "host clock"}
 _REQUIRED_KEYS = ("name", "ph", "pid", "tid", "ts")
 
 
-class _HostSpan:
-    """Context manager emitting one host-clock complete event."""
+class _Span:
+    """One live span: a ``torch.profiler`` mark while the profiler records
+    and/or a host-clock complete event into ``tracer``."""
 
-    __slots__ = ("tracer", "name", "track", "t0")
+    __slots__ = ("name", "args", "tracer", "track", "mark", "t0")
 
-    def __init__(self, tracer, name, track):
-        self.tracer, self.name, self.track = tracer, name, track
+    def __init__(self, name, args, tracer, track, profiling):
+        self.name, self.args, self.tracer, self.track = name, args, tracer, track
+        self.mark = None
+        if profiling:
+            self.mark = torch.profiler.record_function(
+                name, None if args is None else str(args))
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
+        # the host clock is read first and last: both clocks then mark the
+        # span's ends (the profiler's first mark takes a while to open)
+        if self.tracer is not None:
+            self.t0 = time.perf_counter()
+        if self.mark is not None:
+            self.mark.__enter__()
         return self
 
     def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self.mark is not None:
+            self.mark.__exit__(*exc)
         tr = self.tracer
-        t0 = self.t0 - tr.host_t0
-        tr.span(self.name, track=self.track, t0=t0,
-                dur=time.perf_counter() - tr.host_t0 - t0,
-                pid=HOST_PID, cat="host")
+        if tr is not None:
+            t0 = self.t0 - tr.host_t0
+            args = self.args
+            tr.span(self.name, track=self.track, t0=t0, dur=t1 - tr.host_t0 - t0,
+                    pid=HOST_PID, cat="host",
+                    args=args if args is None or isinstance(args, dict)
+                    else {"step": args})
         return False
 
 
@@ -77,6 +113,45 @@ class _NullSpan:
 
 NULL_SPAN = _NullSpan()
 
+# the ambient tracer of program spans: the installed Telemetry's, when it
+# records host spans (``Telemetry`` installs it as it installs its registry)
+_tracer = None
+
+
+def current_tracer():
+    return _tracer
+
+
+def set_tracer(tracer) -> None:
+    global _tracer
+    _tracer = tracer
+
+
+@contextlib.contextmanager
+def use_tracer(tracer):
+    """Scoped ``set_tracer`` (tests; nested runs)."""
+    global _tracer
+    prev, _tracer = _tracer, tracer
+    try:
+        yield tracer
+    finally:
+        _tracer = prev
+
+
+def open_span(name: str, args=None, tracer=None, track: str = "engine"):
+    """A span into ``tracer`` (None: none) and, while the profiler records,
+    the profiler's trace; ``NULL_SPAN`` when neither listens."""
+    profiling = torch.autograd._profiler_enabled()
+    if tracer is None and not profiling:
+        return NULL_SPAN
+    return _Span(name, args, tracer, track, profiling)
+
+
+def span(name: str, args=None):
+    """The program's span of one layer boundary (module docstring): into
+    the profiler's trace and the ambient tracer, whichever listens."""
+    return open_span(name, args, _tracer)
+
 
 class SpanTracer:
     """Appends trace events; bounded by ``max_events`` (excess spans are
@@ -89,6 +164,7 @@ class SpanTracer:
         self.dropped = 0
         self.link_bits: dict = {}
         self.host_t0 = time.perf_counter()
+        self.host_epoch_ns = time.time_ns()  # the epoch time of host_t0
         # (pid, track-name) -> tid; insertion order fixes tid assignment
         self._tids: dict = {}
 
@@ -156,9 +232,10 @@ class SpanTracer:
                   track=track if track is not None else f"link:{link}",
                   t0=t0, dur=dur, cat="comm", args=a)
 
-    def host_span(self, name: str, track: str = "engine") -> _HostSpan:
-        """Host-clock span context manager (the engine's step calls)."""
-        return _HostSpan(self, name, track)
+    def host_span(self, name: str, track: str = "engine"):
+        """Host-clock span context manager (the engine's step calls); also
+        a profiler mark while the profiler records."""
+        return open_span(name, None, self, track)
 
     def reset_run(self) -> None:
         """Fresh per-run accumulators (the ledger is also rebuilt per
@@ -183,7 +260,8 @@ class SpanTracer:
         events.extend(self.events)
         meta = {"clock_domains": {str(p): n for p, n in PROCESS_NAMES.items()},
                 "dropped_events": self.dropped,
-                "link_bits": dict(self.link_bits)}
+                "link_bits": dict(self.link_bits),
+                "host_epoch_ns": self.host_epoch_ns}
         if metadata:
             meta.update(metadata)
         return {"traceEvents": events, "displayTimeUnit": "ms",

@@ -21,7 +21,7 @@ from repro_torch.obs.health import NULL_HEALTH, HealthMonitor
 from repro_torch.obs.metrics import (
     NULL_REGISTRY, MetricsRegistry, NullRegistry, set_registry,
 )
-from repro_torch.obs.spans import NULL_SPAN, SpanTracer
+from repro_torch.obs.spans import SpanTracer, open_span, set_tracer
 from repro_torch.obs.torchprof import live_bytes
 
 
@@ -49,15 +49,16 @@ class Telemetry:
         # install as the ambient registry so wireless pricing / sync-step
         # builders (which cannot thread a handle) emit into this run
         set_registry(self.registry)
+        # and the tracer as the ambient one of the program's spans
+        set_tracer(self.tracer if self.host else None)
 
     # --- spans ------------------------------------------------------------
 
     def host_span(self, name: str, track: str = "engine"):
-        """Host-clock span around an engine step call; no-op when host
-        spans are configured off (virtual tracing can stay on alone)."""
-        if not self.host:
-            return NULL_SPAN
-        return self.tracer.host_span(name, track=track)
+        """Host-clock span around an engine step call; with host spans
+        configured off (virtual tracing can stay on alone) only the
+        profiler's mark, while it records."""
+        return open_span(name, None, self.tracer if self.host else None, track)
 
     # --- run lifecycle ----------------------------------------------------
 
@@ -105,7 +106,8 @@ class NullTelemetry:
     """Disabled telemetry: every emit is a no-op, every guard is False.
 
     One shared instance serves all disabled runs; ``host_span`` returns a
-    shared context manager and no method allocates, so the disabled path
+    shared context manager (a profiler mark while ``torch.profiler``
+    records) and no method allocates, so the disabled path
     costs one attribute check at the guarded sites and nothing at all in
     memory."""
 
@@ -117,7 +119,7 @@ class NullTelemetry:
     health = NULL_HEALTH
 
     def host_span(self, name: str, track: str = "engine"):
-        return NULL_SPAN
+        return open_span(name, None, None, track)
 
     def reset_run(self) -> None:
         pass

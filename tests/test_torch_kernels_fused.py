@@ -15,6 +15,7 @@ from repro.kernels.fused_sync import ops as jops
 from repro_torch.core import sparsify as tsp
 from repro_torch.kernels.fused_sync import kernel as TK
 from repro_torch.kernels.fused_sync import ops as tops
+from repro_torch.obs import MetricsRegistry, use_registry
 
 torch.use_deterministic_algorithms(True)
 torch.set_num_threads(2)
@@ -140,13 +141,17 @@ def test_select_topk_rows_edge_cases(interpret):
     _check_rows(F, 512, interpret)  # k = n
 
 
+def _outcomes(reg):
+    """(calls the candidates answered, calls the exact fallback answered)."""
+    c = reg.counter("fused.select_calls")
+    return c.value(outcome="candidates"), c.value(outcome="fallback")
+
+
 def test_block_branch_takes_the_kernel_path_without_fallback():
     S = np.random.default_rng(4).standard_normal((2, 3 * BE + 11)).astype(np.float32)
-    before = tops.select_topk_rows.fallbacks
-    finished = tops.select_topk_rows.finished
-    _check_rows(S, S.shape[1] // 10, False)
-    assert tops.select_topk_rows.fallbacks == before
-    assert tops.select_topk_rows.finished == finished + 1
+    with use_registry(MetricsRegistry()) as reg:
+        _check_rows(S, S.shape[1] // 10, False)
+    assert _outcomes(reg) == (1, 0)
 
 
 def test_block_branch_counts_the_exact_fallback():
@@ -154,25 +159,24 @@ def test_block_branch_counts_the_exact_fallback():
     the candidates cannot answer, the exact fallback does, and is counted."""
     S = np.zeros((2, 3 * BE), np.float32)
     S[:, ::97] = np.random.default_rng(6).standard_normal((2, S[0, ::97].size))
-    before = tops.select_topk_rows.fallbacks
-    finished = tops.select_topk_rows.finished
-    _check_rows(S, S.shape[1] // 10, False)
-    assert tops.select_topk_rows.fallbacks == before + 1
-    assert tops.select_topk_rows.finished == finished
+    with use_registry(MetricsRegistry()) as reg:
+        _check_rows(S, S.shape[1] // 10, False)
+    assert _outcomes(reg) == (0, 1)
 
 
 def test_select_topk_rows_records_each_outcome_in_order():
-    """One entry per compacting call: True where the candidates answered,
-    False where the exact fallback did."""
+    """One count per compacting call: of the candidates where they
+    answered, of the exact fallback where it did."""
     dense = np.random.default_rng(4).standard_normal((1, 3 * BE)).astype(np.float32)
     sparse = np.zeros((1, 3 * BE), np.float32)
     sparse[0, ::97] = 1.0  # fewer than k nonzeros
     k = 3 * BE // 10
-    sel = tops.select_topk_rows
-    n0 = len(sel.outcomes)
-    for S in (dense, sparse, dense):
-        sel(torch.from_numpy(S), k, interpret=False)
-    assert sel.outcomes[n0:] == [True, False, True]
+    with use_registry(MetricsRegistry()) as reg:
+        for S, want in ((dense, (1, 0)), (sparse, (1, 1)), (dense, (2, 1))):
+            tops.select_topk_rows(torch.from_numpy(S), k, interpret=False)
+            assert _outcomes(reg) == want
+    for name in ("finished", "fallbacks", "outcomes"):
+        assert not hasattr(tops.select_topk_rows, name)
 
 
 @pytest.mark.parametrize("phi", [0.9, 0.99])

@@ -187,6 +187,8 @@ def test_span_nesting_and_export_equal_the_reference():
     strip = lambda o: [e for e in o["traceEvents"] if e["pid"] != T.HOST_PID
                        or e.get("ph") == "M"]
     assert strip(t) == strip(j)  # virtual events and track metadata
+    # the port's export also gives its host clock's epoch time
+    assert isinstance(t["metadata"].pop("host_epoch_ns"), int)
     assert t["metadata"] == j["metadata"]
     inner, outer = [e for e in t["traceEvents"]
                     if e.get("pid") == T.HOST_PID and e.get("ph") == "X"]
@@ -227,6 +229,7 @@ def test_event_cap_drops_spans_but_conserves_bits():
         assert len(tr.events) == 2 and tr.dropped == 2
         assert tr.link_bits["ul"] == 24.0  # accumulation never stops
         out.append(tr.to_chrome()["metadata"])
+    out[1].pop("host_epoch_ns")  # the port's alone
     assert out[0] == out[1]
 
 
@@ -363,7 +366,9 @@ def test_health_monitor_equals_the_reference_on_the_same_streams():
         "dead-cluster", "loss-spike", "payload-outlier", "non-finite"}
     assert tm.summary() == jm.summary()
     assert tr.snapshot() == jr.snapshot()
-    assert json.dumps(tt.to_chrome()) == json.dumps(jt.to_chrome())  # NaN too
+    t_chrome = tt.to_chrome()
+    t_chrome["metadata"].pop("host_epoch_ns")  # the port's alone
+    assert json.dumps(t_chrome) == json.dumps(jt.to_chrome())  # NaN too
     ov = tr.snapshot()["health.omega_overlap_ul"]["series"]
     assert ov and any(v == 1.0 for v in ov.values())
     tm.reset_run()
