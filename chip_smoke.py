@@ -45,6 +45,18 @@ nonzero):
      every launch (the row fits in the 50 MB L2), each after a flush that
      writes and after one that reads (``bitpack`` also beside the events'
      own floor);
+  2d. the exact top-k's radix select (``kernels/radix_select``,
+     ``csrc/radix_select.cu``; ``radix_select_checks``): the kernels'
+     winners and keys, and the ordered positions, bit for bit against the
+     plain version and the torch route of ``stable_topk_positions``, at
+     olmo's row (Q entries made from a seed like a sync's bf16 drift:
+     ``DRIFT_ZEROS`` shares of zeros, the rest crowded into six exponents;
+     starting off a 16-B boundary, as the second row of an [R, Q] matrix
+     with odd Q does), the faithful row (Q = 11,173,962; also against a
+     CPU copy) and small rows (NaN, ±inf, ±0.0, subnormals; k = 1, n; one
+     entry; every offset in a 16-B chunk); each size timed beside its
+     bound (five reads of the row, 8 B a winner), the torch route's time
+     and the device time of each kernel and the sort;
   3. fused selection on a gaussian [2, Q] matrix: ``select_topk_rows``
      (the ``block_select`` pipeline, which must answer it without the
      exact fallback) against the exact stable sort, timed
@@ -318,7 +330,8 @@ KERNEL_FUNCTIONS = ("select_kernel", "update_max_kernel", "slice_hist_kernel",
                     "fwd_kernel", "dq_kernel", "dkv_kernel", "fwd_wgmma_kernel",
                     "dq_wgmma_kernel", "dkv_wgmma_kernel", "decode_split_kernel",
                     "decode_merge_kernel", "gqa_decode_wgmma_kernel",
-                    "mla_decode_wgmma_kernel")
+                    "mla_decode_wgmma_kernel", "radix_hist_kernel",
+                    "tile_count_kernel", "tile_scan_kernel", "tile_write_kernel")
 # the bf16 decode kernels of csrc/decode_attn_sm90.cu: <DP> or <NB>
 DECODE_TC_KERNELS = ("gqa_decode_wgmma_kernel", "mla_decode_wgmma_kernel")
 # the bf16 attention kernels (csrc/flash_attn{,_bwd}.cu, decode_attn_sm90.cu):
@@ -522,10 +535,12 @@ def res_usage(lib):
     return out
 
 
-def kernel_split(torch, fn, reps, flush=None):
+def kernel_split(torch, fn, reps, flush=None,
+                 names=("slice_hist_kernel", "tile_order_sum_kernel")):
     """Mean device ms per call of each named kernel that ``fn`` launches,
     from a short torch.profiler capture (``flush`` rewritten before each
-    call evicts the L2; its own kernel is not counted)."""
+    call evicts the L2; its own kernel is not counted), and without a
+    flush, of all its device work (``"all"``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -540,8 +555,11 @@ def kernel_split(torch, fn, reps, flush=None):
     key = "self_device_time_total"
     if not hasattr(next(iter(avg)), key):
         key = "self_cuda_time_total"
-    return {k: sum(getattr(e, key) for e in avg if k in e.key) / reps / 1e3
-            for k in ("slice_hist_kernel", "tile_order_sum_kernel")}
+    out = {k: sum(getattr(e, key) for e in avg if k in e.key) / reps / 1e3
+           for k in names}
+    if flush is None:
+        out["all"] = sum(getattr(e, key) for e in avg) / reps / 1e3
+    return out
 
 
 def fused_outcomes(reg):
@@ -2555,6 +2573,128 @@ def decode_timings(torch, DA, gen, checks, kernels):
         free(torch)
 
 
+# ---- phase 2d: the exact top-k's radix select ----------------------------
+# the olmo rows' shares of zeros: the sync's bf16 drift (under a tenth of its
+# entries nonzero, so nnz <= k at phi = 0.9 and t = 0: every call of the
+# fused cell falls back there), and one with nnz > k, where t falls inside a
+# crowd of tied bf16 magnitudes
+DRIFT_ZEROS = (0.92, 0.7)
+RADIX_KERNELS = ("radix_hist_kernel", "tile_count_kernel", "tile_scan_kernel",
+                 "tile_write_kernel")
+
+
+def drift_row(torch, n, zeros, seed, device, offset=0):
+    """A seeded f32 row of n entries shaped like a sync's drift: a share
+    ``zeros`` of zeros (of either sign), the rest bf16 magnitudes
+    2^e (1 + m / 128), e in [-14, -9], of either sign, so the keys crowd
+    into six exponents (48 digits of the first pass). The row starts
+    ``offset`` entries into its buffer, as the second row of an [R, n]
+    matrix with odd n starts off a 16-B boundary."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.empty(n + offset, device=device)[offset:]
+    step = 1 << 26
+    for a in range(0, n, step):
+        m = min(step, n - a)
+        u = torch.rand(m, generator=gen, device=device)
+        sign = torch.where(torch.rand(m, generator=gen, device=device) < 0.5, -1.0, 1.0)
+        e = torch.randint(-14, -8, (m,), generator=gen, device=device).float()
+        f = torch.randint(0, 128, (m,), generator=gen, device=device).float()
+        x[a:a + m] = sign * torch.where(u < zeros, 0.0, torch.exp2(e) * (1 + f / 128))
+    return x
+
+
+def radix_select_checks(torch, kernels, Q, k, Qf, kf, dev):
+    """Phase 2d (callable alone after ``_build.timed_build()``): the radix
+    select's kernels against their plain version and the torch route,
+    bit for bit, then timed; each size's timing goes into ``kernels``."""
+    from repro_torch.core import sparsify as sp
+    from repro_torch.kernels.radix_select import kernel as RS
+
+    flush = torch.empty(32 << 20, device=dev)  # 128 MB: evicts the 50 MB L2
+
+    def check(name, x, kk, cpu=True):
+        pos, keys = RS.radix_select(x, kk)
+        top = RS.radix_topk(x, kk)
+        torch.cuda.synchronize()
+        ppos, pkeys = RS.radix_select_plain(x, kk)
+        same(torch, [pos, keys], [ppos, pkeys], f"radix_select[{name}]")
+        same(torch, [top], [RS.order_winners(ppos, pkeys)], f"radix_topk[{name}]")
+        same(torch, [top], [sp._stable_topk_torch(x, kk)],
+             f"radix_topk[{name}] against the torch route")
+        if cpu:  # the CPU route, which the tests hold against lax.top_k
+            same(torch, [top.cpu()], [sp.stable_topk_positions(x.cpu(), kk)],
+                 f"radix_topk[{name}] against the CPU route")
+        t = int(pkeys.min())
+        emit({"check": "radix_select", "case": name, "n": x.numel(), "k": kk,
+              "offset": x.data_ptr() % 16 // 4, "t": t,
+              "need": kk - int((pkeys > t).sum()), "bitwise_equal": True,
+              "cpu_route_equal": cpu})
+        del pos, keys, top, ppos, pkeys
+
+    def timed(shape, x, kk, cold):
+        fn = lambda: RS.radix_topk(x, kk)
+        if cold:
+            ms = cuda_ms_cold(torch, fn, 10, flush)
+        else:
+            ms = cuda_ms(torch, fn, 3)
+        torch_ms = cuda_ms(torch, lambda: sp._stable_topk_torch(x, kk), 1)
+        plain_ms = cuda_ms(torch, lambda: RS.radix_topk_plain(x, kk), 1)
+        split = kernel_split(torch, fn, 3, names=RADIX_KERNELS)  # warm
+        n = x.numel()
+        b, by = bound_ms(5 * 4 * n + 8 * kk)
+        kernels.setdefault("radix_select", {})[shape] = entry = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+            torch_route_ms=torch_ms, max_abs_err=0.0, elements=n, k=kk,
+            cold_l2=cold, hist_passes_ms=split["radix_hist_kernel"],
+            hist_bound_ms=bound_ms(3 * 4 * n)[0],
+            count_ms=split["tile_count_kernel"], scan_ms=split["tile_scan_kernel"],
+            write_ms=split["tile_write_kernel"],
+            sort_and_rest_ms=split["all"] - sum(split[k_] for k_ in RADIX_KERNELS))
+        emit({"timing": "radix_select", "shape": shape, **entry})
+
+    # small rows: specials, the ends of k, every offset in a 16-B chunk
+    gen = torch.Generator(device=dev).manual_seed(29)
+    T = RS.TILE
+    odd = torch.randn(3 * T + 8, generator=gen, device=dev)
+    pick = torch.randperm(odd.numel(), generator=gen, device=dev)
+    odd[pick[:40]] = float("nan")
+    odd[pick[40:80]] = float("inf")
+    odd[pick[80:120]] = -float("inf")
+    odd[pick[120:3000]] = 0.0
+    odd[pick[3000:6000]] = -0.0
+    odd[pick[6000:9000]] = torch.tensor([1e-45, 1e-40, -3e-39], device=dev).repeat(1000)
+    for off in range(4):
+        x = odd[off:off + 3 * T + 3]
+        for kk in (1, 90, 3 * T + 3 - 5000, 3 * T + 3 - 1000, 3 * T + 3):
+            check(f"NaN, ±inf, ±0.0, subnormals, offset {off}", x, kk)
+    check("one entry", odd[5:6], 1)
+    check("one tile", odd[2:2 + T], T // 3)
+    small = drift_row(torch, 100_000, DRIFT_ZEROS[0], 101, dev, offset=1)
+    check("small drift", small, sp.keep_count(small.numel(), 0.9))
+    equal = torch.full((T + 77,), -1.5, device=dev)
+    check("all magnitudes equal", equal, 5000)
+    del odd, pick, x, equal
+    free(torch)
+
+    # the faithful row: a drift of its own and a gaussian
+    for name, x in (("faithful drift", drift_row(torch, Qf, DRIFT_ZEROS[0], 102, dev)),
+                    ("faithful gaussian", torch.randn(Qf, generator=gen, device=dev))):
+        check(name, x, kf)
+        if name == "faithful drift":
+            timed("resnet18", x, kf, cold=True)
+    timed("small", small, sp.keep_count(small.numel(), 0.9), cold=True)
+    del x, small
+    free(torch)
+
+    # olmo's row, off a 16-B boundary, at both shares of zeros
+    for zeros in DRIFT_ZEROS:
+        x = drift_row(torch, Q, zeros, 103, dev, offset=1)
+        check(f"olmo-1b drift, {zeros:.0%} zeros", x, k, cpu=False)
+        timed("olmo-1b" if zeros == DRIFT_ZEROS[0] else "olmo-1b nnz > k", x, k, cold=False)
+        del x
+        free(torch)
+
+
 def long_decode(torch, by_path, smi, kernels):
     """Phase 14: (a) decode_32k through ``launch.steps.build_decode_step`` at
     full width (``DECODE_RUNS``): decode ms/step (first step excluded), the
@@ -2723,6 +2863,7 @@ def main(argv):
         from repro_torch.kernels.dgc import ops as dops
         from repro_torch.kernels.fused_sync import kernel as FK
         from repro_torch.kernels.fused_sync import ops as fops
+        from repro_torch.kernels.radix_select import kernel as RS
         from repro_torch.launch import comm_bits
         from repro_torch.launch import noniid_hfl
         from repro_torch.launch import paper_accuracy as pa
@@ -3144,6 +3285,10 @@ def main(argv):
     del S, row, th, no_th
     free(torch)
 
+    # ---- 2d. the exact top-k's radix select ---------------------------------
+    radix_select_checks(torch, kernels, Q, k_ul, Qf, kf, dev)
+    free(torch)
+
     # ---- 4. the main path ---------------------------------------------------
     counters = {"block_select": FK.block_select, "update_max": DK.update_max,
                 "tail_hist": DK.tail_hist, "apply_mask": DK.apply_mask,
@@ -3162,7 +3307,7 @@ def main(argv):
 
         free(torch)
         torch.cuda.reset_peak_memory_stats()
-        for fn in (*counters.values(), *attn_counters.values()):
+        for fn in (*counters.values(), *attn_counters.values(), RS.radix_select):
             fn.launches = 0
         args = train.parse_args(MAIN_ARGV + ["--omega-impl", impl])
         with use_registry(MetricsRegistry()) as reg:
@@ -3173,6 +3318,13 @@ def main(argv):
                 out = train.run(args, on_sync=on_sync)
             torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in {**counters, **attn_counters}.items()}
+        # every exact row on the card takes the radix select's kernels
+        launches["radix_select"] = RS.radix_select.launches
+        exact = reg.counter("sparsify.exact_topk_rows")
+        if (exact.value(route="plain"), exact.value(route="kernel")) != (
+                0, launches["radix_select"]):
+            raise AssertionError(f"{impl}: exact rows {exact.series}, radix_select "
+                                 f"launched {launches['radix_select']} times")
         peak = torch.cuda.max_memory_allocated()
         # which selections the block_select candidates answered, and which
         # the exact fallback answered after the kernel ran
@@ -4149,6 +4301,9 @@ def main(argv):
                            "src/repro/models/attention.py:85"),
         "mla_decode_attn_tc": ("src/repro_torch/csrc/decode_attn_sm90.cu",
                                "src/repro/models/attention.py:252"),
+        # no TPU kernel: the reference's lax.top_k (the exact fallback)
+        "radix_select": ("src/repro_torch/csrc/radix_select.cu",
+                         "src/repro/core/sparsify.py:pack_topk"),
     }
     # the headline numbers at the shape of the path each kernel came with;
     # every shape timed under "shapes"
@@ -4159,7 +4314,8 @@ def main(argv):
                    "decode_attn": "olmo-1b decode_32k",
                    "mla_decode_attn": "deepseek-v2 decode_32k",
                    "decode_attn_tc": "granite-34b decode_32k",
-                   "mla_decode_attn_tc": "deepseek-v2 decode_32k"}
+                   "mla_decode_attn_tc": "deepseek-v2 decode_32k",
+                   "radix_select": "olmo-1b"}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name][first_shape[name]]

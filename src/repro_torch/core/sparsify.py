@@ -8,7 +8,8 @@ tie order, so exact top-k here is ``stable_topk_positions`` — a radix
 select of the k-th largest |x| key followed by a stable sort of the k
 winners, which returns exactly the first k of a stable descending argsort
 while sorting only k entries (the whole-vector sort of a full-size model
-would not fit beside its state).
+would not fit beside its state). On CUDA the select runs as the
+hand-written kernels of ``kernels/radix_select``, on the CPU as torch ops.
 
 ``impl`` of ``pack_phi`` and ``omega``:
   * ``topk``   -- exact top-k (reference)
@@ -23,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.radix_select import kernel as _rs
+from repro_torch.obs.metrics import current_registry
 from repro_torch.obs.spans import span
 from repro_torch.utils.fp import fma_f32
 
@@ -38,11 +41,6 @@ def keep_count(size: int, phi: float) -> int:
 # ---------------------------------------------------------------------------
 # Exact stable top-k
 # ---------------------------------------------------------------------------
-
-
-def _abs_keys(x):
-    """int32 keys ordered like |x| (the f32 bit pattern without its sign)."""
-    return x.contiguous().view(torch.int32) & 0x7FFFFFFF
 
 
 def _kth_key(keys, k: int):
@@ -82,11 +80,25 @@ def first_true(mask, k: int):
 def stable_topk_positions(x, k: int):
     """Positions of the k largest |x| of a 1-D f32 tensor, largest first,
     equal magnitudes in index order: the first k of a stable descending
-    argsort of |x|, i.e. ``lax.top_k``'s answer."""
+    argsort of |x|, i.e. ``lax.top_k``'s answer. Each row ranked counts
+    once in ``sparsify.exact_topk_rows{route}`` of the ambient registry:
+    ``kernel`` on CUDA (``kernels/radix_select``, no device->host read),
+    ``plain`` elsewhere (``_stable_topk_torch``)."""
     k = min(k, x.numel())
     if x.device.type == "meta":  # no values to rank: the positions' shape
         return torch.empty((k,), dtype=torch.int64, device=x.device)
-    keys = _abs_keys(x.reshape(-1))
+    rows = current_registry().counter("sparsify.exact_topk_rows")
+    if x.device.type == "cuda":
+        rows.inc(route="kernel")
+        return _rs.radix_topk(x.reshape(-1).contiguous(), k)
+    rows.inc(route="plain")
+    return _stable_topk_torch(x, k)
+
+
+def _stable_topk_torch(x, k: int):
+    """``stable_topk_positions`` in torch ops (the plain route), on any
+    device, 0 <= k <= numel."""
+    keys = _rs.abs_keys(x.reshape(-1))
     with span("wait.topk"):
         nnz = int(torch.count_nonzero(keys))
     if nnz <= k:  # all nonzeros are in, then the first zeros: t = 0

@@ -52,6 +52,7 @@ SIGNATURES = {
     "rt_mla_decode_attn": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     "rt_decode_attn_tc": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "rt_mla_decode_attn_tc": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    "rt_radix_select": [P, LL, LL, LL, P, P, P, P, P, P],
 }
 
 

@@ -476,6 +476,10 @@ def _check_same_telemetry(jeng, teng):
     for name in HOST_SERIES:
         js.pop(name, None)
         ts.pop(name, None)
+    # the port's own count of the rows it ranks exactly, by route (the
+    # reference keeps none): on the CPU every row takes the torch ops
+    exact = ts.pop("sparsify.exact_topk_rows", None)
+    assert exact is None or set(exact["series"]) == {"route=plain"}
     assert ts.keys() == js.keys()
     for name in js:
         if name in MODEL_GAUGES:
