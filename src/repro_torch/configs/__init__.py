@@ -5,6 +5,7 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 from repro_torch.configs.dbrx_132b import CONFIG as _dbrx
 from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek
+from repro_torch.configs.deepseek_v2_lite import CONFIG as _deepseek_lite
 from repro_torch.configs.granite_34b import CONFIG as _granite
 from repro_torch.configs.h2o_danube3_4b import CONFIG as _danube
 from repro_torch.configs.llava_next_34b import CONFIG as _llava
@@ -18,9 +19,11 @@ ARCHS = {
     c.name: c
     for c in (
         _zamba2, _olmo, _granite, _deepseek, _danube,
-        _musicgen, _mamba2, _dbrx, _starcoder2, _llava,
+        _musicgen, _mamba2, _dbrx, _starcoder2, _llava, _deepseek_lite,
     )
 }
+# the port's own entries, which the reference's registry does not have
+PORT_ONLY = ("deepseek-v2-lite",)
 
 
 def get_config(name: str) -> ModelConfig:

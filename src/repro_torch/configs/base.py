@@ -39,6 +39,13 @@ class ModelConfig:
     v_head_dim: int = 128
     sliding_window: int = 0
     rope_theta: float = 10000.0
+    # YaRN (DeepSeek-V2's rope_scaling): factor 0 leaves RoPE unscaled
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     num_experts: int = 0
     experts_per_token: int = 0
@@ -46,6 +53,18 @@ class ModelConfig:
     num_shared_experts: int = 0
     capacity_factor: float = 1.25
     router_aux_loss_coef: float = 0.01
+    # the port's own MoE settings (the reference has none of them): routing
+    # without capacity or drops (``models.moe.held_moe_forward``, with
+    # DeepSeek-V2's per-sequence balance loss summed over the layers, where
+    # the capacity layer's Switch loss is averaged over them), the top-K
+    # gates renormalised or not (either layer), the experts this layer holds
+    # (0: all) from ``experts_offset`` on, and ``first_k_dense`` leading
+    # blocks with a dense FFN of ``d_ff``
+    dropless: bool = False
+    norm_topk_prob: bool = True
+    experts_held: int = 0
+    experts_offset: int = 0
+    first_k_dense: int = 0
 
     ssm_state: int = 0
     ssm_expand: int = 2
@@ -106,8 +125,12 @@ class ModelConfig:
                 num_shared_experts=min(self.num_shared_experts, 1),
             )
         if self.use_mla:
-            kw.update(kv_lora_rank=64, q_lora_rank=64, qk_rope_head_dim=16,
-                      qk_nope_head_dim=32, v_head_dim=32)
+            kw.update(kv_lora_rank=64, q_lora_rank=64 if self.q_lora_rank else 0,
+                      qk_rope_head_dim=16, qk_nope_head_dim=32, v_head_dim=32)
+        if self.experts_held:
+            kw.update(experts_held=min(self.experts_held, 2), experts_offset=0)
+        if self.first_k_dense:
+            kw.update(first_k_dense=1)
         if self.ssm_state:
             kw.update(ssm_state=min(self.ssm_state, 16), ssm_headdim=32,
                       ssm_chunk=32)

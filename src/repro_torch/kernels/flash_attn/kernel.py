@@ -88,22 +88,25 @@ def attn_flops(q, k, v) -> float:
     return 2.0 * B * H * T * k.shape[1] * (Dk + v.shape[3])
 
 
-def _launch_args(q, k, v, q_offset, window):
+def _launch_args(q, k, v, q_offset, window, scale):
     B, T, H, Dk = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     return (B, T, S, H, Hkv, Dk, v.shape[3], int(q_offset), int(window),
-            1.0 / math.sqrt(Dk), int(q.dtype == torch.bfloat16))
+            1.0 / math.sqrt(Dk) if scale is None else float(scale),
+            int(q.dtype == torch.bfloat16))
 
 
-def flash_attn_fwd(q, k, v, *, q_offset=0, window=0, q_chunk=512, kv_chunk=512):
+def flash_attn_fwd(q, k, v, *, q_offset=0, window=0, q_chunk=512, kv_chunk=512,
+                   scale=None):
     """q [B,T,H,Dk], k [B,S,Hkv,Dk], v [B,S,Hkv,Dv] (f32 or bf16) -> (out
-    [B,T,H,Dv] f32, lse [B,H,T] f32). ``q_chunk``/``kv_chunk`` tile the
-    plain version; the kernel has its own tiles."""
+    [B,T,H,Dv] f32, lse [B,H,T] f32), the scores scaled by ``scale`` (None:
+    1/√Dk). ``q_chunk``/``kv_chunk`` tile the plain version; the kernel has
+    its own tiles."""
     check_operands(q, k, v, q_offset, window)
     B, T, H, _ = q.shape
     if q.device.type == "cpu":
         return flash_attn_fwd_plain(q, k, v, q_offset=q_offset, window=window,
-                                    q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                    q_chunk=q_chunk, kv_chunk=kv_chunk, scale=scale)
     o32 = torch.empty((B, T, H, v.shape[3]), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if q.device.type == "meta":
@@ -112,7 +115,7 @@ def flash_attn_fwd(q, k, v, *, q_offset=0, window=0, q_chunk=512, kv_chunk=512):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     rc = _build.library().rt_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(), lse.data_ptr(),
-        *_launch_args(q, k, v, q_offset, window), _build.stream_of(q))
+        *_launch_args(q, k, v, q_offset, window, scale), _build.stream_of(q))
     _build.check(rc, "flash_attn_fwd")
     _build.count_launch(flash_attn_fwd, q, k, v, o32, lse, flops=attn_flops(q, k, v))
     return o32, lse
@@ -122,10 +125,11 @@ flash_attn_fwd.launches = 0
 
 
 def flash_attn_bwd(q, k, v, o32, lse, dout, *, q_offset=0, window=0,
-                   q_chunk=512, kv_chunk=512):
+                   q_chunk=512, kv_chunk=512, scale=None):
     """Gradients of ``flash_attn_fwd``'s output (cast to q's type) for the
     cotangent ``dout`` [B,T,H,Dv] (q's type); ``o32`` and ``lse`` are the
-    forward's -> (dq, dk, dv) in the types of q, k and v."""
+    forward's at the same ``scale`` -> (dq, dk, dv) in the types of q, k
+    and v."""
     check_operands(q, k, v, q_offset, window)
     _build.require(dout.shape == o32.shape == q.shape[:3] + v.shape[3:]
                    and lse.shape == (q.shape[0], q.shape[2], q.shape[1]),
@@ -136,7 +140,8 @@ def flash_attn_bwd(q, k, v, o32, lse, dout, *, q_offset=0, window=0,
                    "flash_attn_bwd: o32 and lse must be float32")
     if q.device.type == "cpu":
         return flash_attn_bwd_plain(q, k, v, o32, lse, dout, q_offset=q_offset,
-                                    window=window, q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                    window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                    scale=scale)
     dout = dout.to(q.dtype)
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
@@ -150,7 +155,7 @@ def flash_attn_bwd(q, k, v, o32, lse, dout, *, q_offset=0, window=0,
     rc = _build.library().rt_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o32.data_ptr(), lse.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        delta.data_ptr(), *_launch_args(q, k, v, q_offset, window),
+        delta.data_ptr(), *_launch_args(q, k, v, q_offset, window, scale),
         _build.stream_of(q))
     _build.check(rc, "flash_attn_bwd")
     _build.count_launch(flash_attn_bwd, q, k, v, o32, lse, dout, dq, dk, dv,

@@ -15,9 +15,9 @@ from repro_torch.kernels.flash_attn import kernel as K
 
 class FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, q_offset, window, q_chunk, kv_chunk):
+    def forward(ctx, q, k, v, q_offset, window, q_chunk, kv_chunk, scale=None):
         ctx.opts = dict(q_offset=q_offset, window=window, q_chunk=q_chunk,
-                        kv_chunk=kv_chunk)
+                        kv_chunk=kv_chunk, scale=scale)
         o32, lse = K.flash_attn_fwd(q, k, v, **ctx.opts)
         ctx.save_for_backward(q, k, v, o32, lse)
         return o32.to(q.dtype)
@@ -26,5 +26,5 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, o32, lse = ctx.saved_tensors
         dq, dk, dv = K.flash_attn_bwd(q, k, v, o32, lse, dout, **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 

@@ -2,9 +2,9 @@
 online softmax (``repro.models.attention.flash_attention``) literally.
 
 For each q tile an online softmax runs over every key tile, masked ones
-included: f32 scores ``(q . k) * scale`` masked to -1e30, m/l/acc in f32,
-P . V in f32, ``acc / max(l, 1e-30)``; the forward also returns each
-row's log-sum-exp. The backward recomputes each q tile's sweep, as the
+included: f32 scores ``(q . k) * scale`` (``scale`` 1/√Dk unless given)
+masked to -1e30, m/l/acc in f32, P . V in f32, ``acc / max(l, 1e-30)``;
+the forward also returns each row's log-sum-exp. The backward recomputes each q tile's sweep, as the
 reference's ``jax.checkpoint(q_step)`` does, tile by tile from the saved
 log-sum-exp (p = exp(s - lse)) and differentiates it in closed form: dp =
 dO . V^T, ds = p (dp - rowsum(dO * O)), dq = ds . K, dk = ds^T . Q, dv =
@@ -70,11 +70,11 @@ def _ungrouped(x):
 
 
 def flash_attn_fwd_plain(q, k, v, *, q_offset=0, window=0, q_chunk=512,
-                         kv_chunk=512):
+                         kv_chunk=512, scale=None):
     """q [B,T,H,Dk], k [B,S,Hkv,Dk], v [B,S,Hkv,Dv] -> (out [B,T,H,Dv] f32,
-    lse [B,H,T] f32)."""
+    lse [B,H,T] f32); the scores scaled by ``scale`` (None: 1/√Dk)."""
     Hkv = k.shape[2]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     kf, vf = k.float(), v.float()
     kc = min(kv_chunk, k.shape[1])
     outs, lses = [], []
@@ -87,7 +87,7 @@ def flash_attn_fwd_plain(q, k, v, *, q_offset=0, window=0, q_chunk=512,
 
 
 def flash_attn_bwd_plain(q, k, v, o32, lse, dout, *, q_offset=0, window=0,
-                         q_chunk=512, kv_chunk=512):
+                         q_chunk=512, kv_chunk=512, scale=None):
     """Gradients of ``flash_attn_fwd_plain``'s output (cast to q's type)
     for the cotangent ``dout`` [B,T,H,Dv], given that forward's ``o32``
     and ``lse``: each (q tile, key tile) pair recomputed and differentiated
@@ -95,7 +95,7 @@ def flash_attn_bwd_plain(q, k, v, o32, lse, dout, *, q_offset=0, window=0,
     types of q, k and v."""
     B, T, H, Dk = q.shape
     Hkv = k.shape[2]
-    scale = 1.0 / math.sqrt(Dk)
+    scale = 1.0 / math.sqrt(Dk) if scale is None else float(scale)
     kc = min(kv_chunk, k.shape[1])
     kf, vf = k.float(), v.float()
     do = _grouped(dout.float(), Hkv)

@@ -19,24 +19,27 @@ from repro_torch.device import resolve
 from repro_torch.kernels.decode_attn.kernel import decode_attn, mla_decode_attn
 from repro_torch.kernels.flash_attn.ops import FlashAttention
 from repro_torch.models.common import (
-    apply_norm, apply_rope, default_scale, dense_init, init_norm, rope_angles,
-    torch_dtype,
+    apply_norm, apply_rope, default_scale, dense_init, init_norm, mla_softmax_scale,
+    model_rope_angles, rope_angles, torch_dtype,
 )
+from repro_torch.obs.spans import span
 
 
-def flash_attention(q, k, v, *, q_offset=0, window=0, q_chunk=512, kv_chunk=512):
+def flash_attention(q, k, v, *, q_offset=0, window=0, q_chunk=512, kv_chunk=512,
+                    scale=None):
     """Causal attention, the reference's ``flash_attention``. q [B,T,H,Dk];
     k [B,S,Hkv,Dk]; v [B,S,Hkv,Dv] -> [B,T,H,Dv] in q's type.
 
     ``window`` > 0 enables sliding-window masking (key kept iff
     q_pos - window < k_pos <= q_pos). ``q_offset`` is the absolute position
     of q[0] (k positions start at 0). q-head h reads kv-head h // (H / Hkv);
-    scores are scaled by 1/√Dk. v may be narrower than q and k (MLA): the
-    result equals the reference's pad-v-to-Dk-then-slice. Unlike the
-    reference, which asserts that the chunks divide T and S, a ragged T or
-    S is answered, its last tile short."""
+    scores are scaled by ``scale``, 1/√Dk where it is None. v may be
+    narrower than q and k (MLA): the result equals the reference's
+    pad-v-to-Dk-then-slice. Unlike the reference, which asserts that the
+    chunks divide T and S, a ragged T or S is answered, its last tile
+    short."""
     return FlashAttention.apply(q, k, v, int(q_offset), int(window),
-                                int(q_chunk), int(kv_chunk))
+                                int(q_chunk), int(kv_chunk), scale)
 
 
 def init_gqa(gen, cfg, lead=(), device=None):
@@ -115,17 +118,23 @@ def gqa_decode(p, x, cache_k, cache_v, slot_pos, slot, pos, cfg, *, window=None)
 
 
 def init_mla(gen, cfg, lead=(), device=None):
+    """MLA's weights; without a query LoRA (``q_lora_rank`` 0) the query is
+    one projection ``w_q`` [d, H·(dn + dr)] in place of w_dq, q_norm, w_uq."""
     device = resolve(device)
     d, H = cfg.d_model, cfg.num_heads
     r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     dt = torch_dtype(cfg.dtype)
     lead = tuple(lead)
+    if qr:
+        q = {"w_dq": dense_init(gen, lead + (d, qr), dt, default_scale(d), device),
+             "w_uq": dense_init(gen, lead + (qr, H * (dn + dr)), dt,
+                                default_scale(qr), device),
+             "q_norm": init_norm(cfg, qr, lead, device)}
+    else:
+        q = {"w_q": dense_init(gen, lead + (d, H * (dn + dr)), dt, default_scale(d), device)}
     return {
-        "w_dq": dense_init(gen, lead + (d, qr), dt, default_scale(d), device),
-        "w_uq": dense_init(gen, lead + (qr, H * (dn + dr)), dt,
-                           default_scale(qr), device),
-        "q_norm": init_norm(cfg, qr, lead, device),
+        **q,
         "w_dkv": dense_init(gen, lead + (d, r + dr), dt, default_scale(d), device),
         "kv_norm": init_norm(cfg, r, lead, device),
         "w_uk": dense_init(gen, lead + (r, H, dn), dt, default_scale(r), device),
@@ -137,9 +146,12 @@ def init_mla(gen, cfg, lead=(), device=None):
 def _mla_q(p, x, cfg, positions):
     B, T, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    cq = apply_norm(p["q_norm"], x @ p["w_dq"], cfg)
-    q = (cq @ p["w_uq"]).reshape(B, T, cfg.num_heads, dn + dr)
-    cos, sin = rope_angles(positions, dr, cfg.rope_theta)
+    if "w_q" in p:
+        q = (x @ p["w_q"]).reshape(B, T, cfg.num_heads, dn + dr)
+    else:
+        cq = apply_norm(p["q_norm"], x @ p["w_dq"], cfg)
+        q = (cq @ p["w_uq"]).reshape(B, T, cfg.num_heads, dn + dr)
+    cos, sin = model_rope_angles(positions, dr, cfg)
     return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
 
 
@@ -147,29 +159,31 @@ def _mla_ckv(p, x, cfg, positions):
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     ckv_full = x @ p["w_dkv"]
     ckv = apply_norm(p["kv_norm"], ckv_full[..., :r], cfg)
-    cos, sin = rope_angles(positions, dr, cfg.rope_theta)
+    cos, sin = model_rope_angles(positions, dr, cfg)
     # k_rope [B,T,dr] is shared across heads
     k_rope = apply_rope(ckv_full[..., r:][:, :, None, :], cos, sin)[:, :, 0]
     return ckv, k_rope
 
 
 def mla_forward(p, x, cfg):
-    """Train/prefill MLA: expand the latent to per-head k and v, then flash
-    attention over q = [nope, rope] at the scale 1/√(dn + dr). v keeps its
-    own width (the reference pads it to dn + dr for its flash attention and
-    slices the pad off again)."""
-    B, T, _ = x.shape
-    H = cfg.num_heads
-    dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
-    positions = torch.arange(T, device=x.device)
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
-    ckv, k_rope = _mla_ckv(p, x, cfg, positions)
-    k_nope = torch.einsum("btr,rhd->bthd", ckv, p["w_uk"])
-    v = torch.einsum("btr,rhd->bthd", ckv, p["w_uv"])
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
-    out = flash_attention(q, k, v)
-    return out.reshape(B, T, H * dv) @ p["wo"]
+    """Train/prefill MLA (the span ``mla.forward``): expand the latent to
+    per-head k and v, then flash attention over q = [nope, rope] at the
+    scale 1/√(dn + dr) (times YaRN's mscale² where set:
+    ``common.mla_softmax_scale``). v keeps its own width (the reference pads
+    it to dn + dr for its flash attention and slices the pad off again)."""
+    with span("mla.forward"):
+        B, T, _ = x.shape
+        H = cfg.num_heads
+        dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
+        positions = torch.arange(T, device=x.device)
+        q_nope, q_rope = _mla_q(p, x, cfg, positions)
+        ckv, k_rope = _mla_ckv(p, x, cfg, positions)
+        k_nope = torch.einsum("btr,rhd->bthd", ckv, p["w_uk"])
+        v = torch.einsum("btr,rhd->bthd", ckv, p["w_uv"])
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+        out = flash_attention(q, k, v, scale=mla_softmax_scale(cfg))
+        return out.reshape(B, T, H * dv) @ p["wo"]
 
 
 def mla_fill_cache(p, x, cfg):
@@ -189,7 +203,13 @@ def mla_decode(p, x, cache_ckv, cache_kr, slot_pos, slot, pos, cfg):
     cache_ckv[bidx, slot] = ckv[:, 0]
     cache_kr[bidx, slot] = k_rope[:, 0]
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], p["w_uk"])  # absorb W_uk
-    o_lat = mla_decode_attn(q_abs, q_rope[:, 0], cache_ckv, cache_kr, slot_pos, pos,
+    q_rope = q_rope[:, 0]
+    scale = mla_softmax_scale(cfg)
+    if scale is not None:  # the kernel scales by 1/√(dn + dr): the rest goes on q
+        m2 = scale * math.sqrt(dn + dr)
+        q_abs = (q_abs.float() * m2).to(q_abs.dtype)
+        q_rope = (q_rope.float() * m2).to(q_rope.dtype)
+    o_lat = mla_decode_attn(q_abs, q_rope, cache_ckv, cache_kr, slot_pos, pos,
                             qk_head_dim=dn + dr)
     out = torch.einsum("bhr,rhd->bhd", o_lat, p["w_uv"]).reshape(B, 1, H * dv)
     return out @ p["wo"], cache_ckv, cache_kr

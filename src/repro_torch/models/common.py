@@ -130,6 +130,61 @@ def rope_angles(positions, dim, theta):
     return torch.cos(ang), torch.sin(ang)
 
 
+def yarn_correction_range(dim, theta, beta_fast, beta_slow, original_max_pos):
+    """(low, high): the frequency pairs where YaRN's ramp starts and ends,
+    from the rotations ``beta_fast`` and ``beta_slow`` over the original
+    context (``yarn_find_correction_range`` of DeepSeek-V2's modelling code)."""
+    def pair(rotations):
+        return (dim * math.log(original_max_pos / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return max(math.floor(pair(beta_fast)), 0), min(math.ceil(pair(beta_slow)), dim - 1)
+
+
+def yarn_mscale(factor, mscale):
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn_inv_freq(dim, theta, factor, beta_fast, beta_slow, original_max_pos, device):
+    low, high = yarn_correction_range(dim, theta, beta_fast, beta_slow, original_max_pos)
+    high = high + 0.001 if low == high else high
+    i = torch.arange(dim // 2, dtype=torch.float64)
+    ramp = ((i - low) / (high - low)).clamp(0.0, 1.0)
+    extra = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float64) / dim)
+    inv = extra / factor * ramp + extra * (1.0 - ramp)
+    return inv.float().to(device)
+
+
+def model_rope_angles(positions, dim, cfg):
+    """``rope_angles`` at ``cfg``'s RoPE: plain, or YaRN where
+    ``cfg.yarn_factor`` is set (``DeepseekV2YarnRotaryEmbedding``: between
+    the correction range's ends each pair's frequency ramps from θ^(-2i/dim)
+    to it over the factor; cos and sin times mscale over mscale_all_dim).
+    The table is computed in f64 on the CPU and rounded once, as
+    ``rope_inv_freq``'s, and kept on each device it is asked for."""
+    if not cfg.yarn_factor:
+        return rope_angles(positions, dim, cfg.rope_theta)
+    inv = _yarn_inv_freq(int(dim), float(cfg.rope_theta), float(cfg.yarn_factor),
+                         float(cfg.yarn_beta_fast), float(cfg.yarn_beta_slow),
+                         int(cfg.yarn_original_max_pos), positions.device)
+    ang = positions.float()[..., None] * inv
+    m = (yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+         / yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim))
+    if m == 1.0:
+        return torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang) * m, torch.sin(ang) * m
+
+
+def mla_softmax_scale(cfg):
+    """MLA's score scale where it is not attention's default 1/√(dn + dr)
+    (None there): that default times YaRN's mscale(factor, mscale_all_dim)
+    squared, where YaRN is on and ``mscale_all_dim`` set."""
+    if not (cfg.yarn_factor and cfg.yarn_mscale_all_dim):
+        return None
+    m = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) * m * m
+
+
 def apply_rope(x, cos, sin):
     """x [..., T, H, D]; cos/sin [T, D//2], broadcast over batch/heads."""
     d2 = x.shape[-1] // 2

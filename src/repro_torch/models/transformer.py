@@ -3,7 +3,9 @@
 
   dense   -- GQA attention + (gated) FFN        (olmo, granite, danube,
                                                  starcoder2, musicgen*, llava*)
-  moe     -- GQA or MLA attention + routed FFN  (dbrx, deepseek-v2)
+  moe     -- GQA or MLA attention + routed FFN  (dbrx, deepseek-v2; the
+             ``first_k_dense`` leading blocks with a dense FFN stack
+             apart, as ``dense_blocks``)
   ssm     -- Mamba2 (SSD) mixer, attention-free (mamba2-780m)
   hybrid  -- Mamba2 stack + ONE shared attention
              block applied every ``attn_every`` (zamba2)
@@ -52,18 +54,32 @@ def _layer(tree, i):
 # ---------------------------------------------------------------------------
 
 
-def _init_attn_block(gen, cfg, lead, device):
+def _init_attn_block(gen, cfg, lead, device, dense=False):
+    """A stack of attention blocks; ``dense``: the leading blocks' dense FFN
+    of ``d_ff`` in an MoE model (``cfg.first_k_dense``)."""
+    moe = cfg.num_experts and not dense
     return {
         "norm1": init_norm(cfg, cfg.d_model, lead, device),
         "norm2": init_norm(cfg, cfg.d_model, lead, device),
         "attn": (attn.init_mla if cfg.use_mla else attn.init_gqa)(
             gen, cfg, lead, device),
-        "ffn": (init_moe if cfg.num_experts else init_mlp)(gen, cfg, lead, device),
+        "ffn": (init_moe if moe else init_mlp)(gen, cfg, lead, device),
     }
 
 
+def _attn_layers(params, cfg):
+    """Each attention layer's params in order, sliced as the loop reaches
+    it: the ``first_k_dense`` leading dense blocks
+    (``params["dense_blocks"]``), then ``blocks``."""
+    k = cfg.first_k_dense
+    for i in range(k):
+        yield _layer(params["dense_blocks"], i)
+    for i in range(cfg.num_layers - k):
+        yield _layer(params["blocks"], i)
+
+
 def _ffn(p, h, cfg, groups):
-    if cfg.num_experts:
+    if "router" in p:
         return moe_forward(p, h, cfg, groups=groups)
     return mlp_forward(p, h, cfg), None
 
@@ -140,6 +156,10 @@ def init_model(gen: torch.Generator, cfg, device=None):
                                   0.02, device)}
     if cfg.arch_type in ("ssm", "hybrid"):
         params["blocks"] = _init_mamba_block(gen, cfg, L, device)
+    elif cfg.first_k_dense:
+        k = cfg.first_k_dense
+        params["dense_blocks"] = _init_attn_block(gen, cfg, (k,), device, dense=True)
+        params["blocks"] = _init_attn_block(gen, cfg, (cfg.num_layers - k,), device)
     else:
         params["blocks"] = _init_attn_block(gen, cfg, L, device)
     if cfg.arch_type == "hybrid":
@@ -209,11 +229,12 @@ def forward(params, tokens, cfg, *, frontend_embeds=None, groups=1):
                 x = mamba(_layer(params["blocks"], i), x)
     else:
         block = _remat(cfg, lambda p, h: _apply_attn_block(p, h, cfg, groups))
-        for i in range(cfg.num_layers):
-            x, ai = block(_layer(params["blocks"], i), x)
+        for lp in _attn_layers(params, cfg):
+            x, ai = block(lp, x)
             if ai is not None:
                 aux = aux + ai
-        aux = aux / max(cfg.num_layers, 1)
+        if not cfg.dropless:  # DeepSeek-V2 adds each layer's balance loss
+            aux = aux / max(cfg.num_layers, 1)
     return _logits(params, x, cfg), aux
 
 
@@ -301,8 +322,7 @@ def decode_step(params, cache, token, cfg, *, groups=1):
                 x = x + y
     else:
         kn = ("ckv", "krope") if cfg.use_mla else ("k", "v")
-        for i in range(cfg.num_layers):
-            lp = _layer(params["blocks"], i)
+        for i, lp in enumerate(_attn_layers(params, cfg)):
             hn = apply_norm(lp["norm1"], x, cfg)
             if cfg.use_mla:
                 a, _, _ = attn.mla_decode(lp["attn"], hn, cache[kn[0]][i],
@@ -368,8 +388,7 @@ def prefill(params, tokens, cfg, *, frontend_embeds=None, groups=1, max_len=None
                 x = x + y
     else:
         kn = ("ckv", "krope") if cfg.use_mla else ("k", "v")
-        for i in range(cfg.num_layers):
-            lp = _layer(params["blocks"], i)
+        for i, lp in enumerate(_attn_layers(params, cfg)):
             hn = apply_norm(lp["norm1"], x, cfg)
             if cfg.use_mla:
                 a = attn.mla_forward(lp["attn"], hn, cfg)

@@ -25,6 +25,7 @@ from repro.configs import get_config as j_get
 from repro.launch.steps import make_loss_fn as j_loss_fn
 from repro.models import transformer as JT
 from repro_torch.configs import ARCHS as T_ARCHS
+from repro_torch.configs import PORT_ONLY
 from repro_torch.configs import get_config as t_get
 from repro_torch.configs.base import ModelConfig as TModelConfig
 from repro_torch.launch.steps import make_loss_fn as t_loss_fn
@@ -63,12 +64,15 @@ def _port_inputs(toks, fe):
 
 
 def test_registry_knows_all_ten():
-    assert sorted(T_ARCHS) == NAMES and len(NAMES) == 10
+    # the reference's ten, and the port's own entries beside them
+    assert sorted(set(T_ARCHS) - set(PORT_ONLY)) == NAMES and len(NAMES) == 10
+    assert set(PORT_ONLY) <= set(T_ARCHS) and not set(PORT_ONLY) & set(NAMES)
     with pytest.raises(KeyError) as jerr:
         j_get("nope")
     with pytest.raises(KeyError) as terr:
         t_get("nope")
-    assert str(terr.value) == str(jerr.value)
+    # the same message, naming the port's registry
+    assert str(terr.value) == str(jerr.value).replace(str(NAMES), str(sorted(T_ARCHS)))
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -77,7 +81,13 @@ def test_configs_match_reference_field_for_field(name):
         j, t = j_get(name), t_get(name)
         if not full:
             j, t = j.reduced(), t.reduced()
-        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        # the reference's fields alike; the port's own (MoE settings, YaRN)
+        # at their defaults, which leave the reference's configs as they are
+        tj, jj = dataclasses.asdict(t), dataclasses.asdict(j)
+        assert {k: tj[k] for k in jj} == jj
+        assert {k: v for k, v in tj.items() if k not in jj} == {
+            k: v for k, v in dataclasses.asdict(TModelConfig("x", "dense", 1, 1, 1, 1, 1, 1)).items()
+            if k not in jj}
     assert t_get(name).__doc__ == j_get(name).__doc__
 
 

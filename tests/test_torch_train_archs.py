@@ -46,7 +46,9 @@ def _patch_f32(monkeypatch):
     def port_init(gen, cfg, device=None):
         jcfg = dataclasses.replace(real(cfg.name.replace("-smoke", "")).reduced(),
                                    dtype="float32")
-        assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+        # the reference's fields alike (the port's own MoE and YaRN fields beside them)
+        jd = dataclasses.asdict(jcfg)
+        assert {k: v for k, v in dataclasses.asdict(cfg).items() if k in jd} == jd
         return params_from_numpy(
             jax.tree.map(np.asarray, JT.init_model(jax.random.PRNGKey(0), jcfg)), device)
 
