@@ -57,6 +57,13 @@ nonzero):
      entry; every offset in a 16-B chunk); each size timed beside its
      bound (five reads of the row, 8 B a winner), the torch route's time
      and the device time of each kernel and the sort;
+  2e. SGDM's update (``kernels/sgdm``, ``csrc/sgdm.cu``; ``sgdm_checks``):
+     a step of both rows of a [2, ...] state on the kernel against the
+     torch ops, bit for bit in params and moments, on full-width olmo-1b,
+     DeepSeek-V2-Lite as its benchmark cell holds it and mamba2-780m (f32
+     leaves beside bf16 ones), with and without weight decay and Nesterov,
+     one launch a leaf; timed beside its bound and the torch ops; then two
+     full-width train CLI runs whose every leaf takes the kernel;
   3. fused selection on a gaussian [2, Q] matrix: ``select_topk_rows``
      (the ``block_select`` pipeline, which must answer it without the
      exact fallback) against the exact stable sort, timed
@@ -67,7 +74,7 @@ nonzero):
      ``--omega-impl pallas``; launch counts are zeroed just before and read
      just after each run (the attention kernels' too: with remat, two
      forwards and one backward a layer a cluster a step, plus the eval's
-     forward), and the fused run says how many of its
+     forward; SGDM's, one a leaf a cluster a step), and the fused run says how many of its
      selections the ``block_select`` candidates answered and how many the
      exact fallback answered;
   5. the paper-exact path: full-width ResNet-18 under ``FaithfulHFL``
@@ -192,7 +199,8 @@ nonzero):
      for ROADMAP Queue 1 item 16 part 3, a machine with four cards (one
      deepseek-v2 layer is ~3.97B params, ~200 GB of HFL state at N = 2).
      Each run: 6 launches of each kernel of its impl, the attention
-     launches the path implies (``train_attn_want``), the rows identical
+     launches the path implies (``train_attn_want``), every leaf's SGDM
+     update on the kernel (one launch a leaf a cluster a step), the rows identical
      after each sync, finite losses, the steady s/step, sync ms and a peak
      under ``PEAK_LIMIT_GB``;
  10. the sharded flat vector and the mesh syncs (``sharded_paths``): (a)
@@ -331,7 +339,8 @@ KERNEL_FUNCTIONS = ("select_kernel", "update_max_kernel", "slice_hist_kernel",
                     "dq_wgmma_kernel", "dkv_wgmma_kernel", "decode_split_kernel",
                     "decode_merge_kernel", "gqa_decode_wgmma_kernel",
                     "mla_decode_wgmma_kernel", "radix_hist_kernel",
-                    "tile_count_kernel", "tile_scan_kernel", "tile_write_kernel")
+                    "tile_count_kernel", "tile_scan_kernel", "tile_write_kernel",
+                    "sgdm_kernel")
 # the bf16 decode kernels of csrc/decode_attn_sm90.cu: <DP> or <NB>
 DECODE_TC_KERNELS = ("gqa_decode_wgmma_kernel", "mla_decode_wgmma_kernel")
 # the bf16 attention kernels (csrc/flash_attn{,_bwd}.cu, decode_attn_sm90.cu):
@@ -699,8 +708,10 @@ def model_families(torch, counters, by_path, smi):
     configs' forward card = CPU, 9c HFL training through ``train.run``);
     adds each training run's kernel launches to ``by_path``."""
     from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels.sgdm import kernel as SK
     from repro_torch.launch import serve_batched, train
     from repro_torch.models.frontends import fake_frontend_embeds
+    from repro_torch.obs import MetricsRegistry, use_registry
     from repro_torch.models.transformer import (
         decode_step, forward, init_model, prefill)
     from repro_torch.utils.tree import tree_leaves, tree_map
@@ -831,10 +842,12 @@ def model_families(torch, counters, by_path, smi):
     real_get_config, real_init = train.get_config, train.init_model
     for arch, extra, impl in FAMILY_TRAIN:
         argv = (MAIN_ARGV[1:] + ["--arch", arch, "--omega-impl", impl] + extra)
-        identical, q = [], []
+        identical, q, n_leaves = [], [], []
 
         def on_sync(i, st, sec):
             q[:] = [sum(P[0].numel() for P in tree_leaves(st.params))]
+            n_leaves[:] = [len(tree_leaves(st.params)),
+                           sum(1 for P in tree_leaves(st.params) if P[0].numel())]
             identical.append(all(torch.equal(P[0], P[n]) for P in tree_leaves(st.params)
                                  for n in range(1, P.shape[0])))
 
@@ -849,11 +862,16 @@ def model_families(torch, counters, by_path, smi):
         try:
             free(torch)
             torch.cuda.reset_peak_memory_stats()
-            for fn in (*counters.values(), *attn.values()):
+            for fn in (*counters.values(), *attn.values(), SK.sgdm_update):
                 fn.launches = 0
-            out = train.run(train.parse_args(argv), on_sync=on_sync)
-            torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in {**counters, **attn}.items()}
+            with use_registry(MetricsRegistry()) as reg:
+                out = train.run(train.parse_args(argv), on_sync=on_sync)
+                torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in
+                        {**counters, **attn, "sgdm": SK.sgdm_update}.items()}
+            sgdm = reg.counter("optim.sgdm_leaves")
+            sgdm_leaves = {"kernel": sgdm.value(route="kernel"),
+                           "plain": sgdm.value(route="plain")}
             peak = torch.cuda.max_memory_allocated()
             cpu = None
             if f32:
@@ -869,6 +887,7 @@ def model_families(torch, counters, by_path, smi):
                 "first_step_s": out["timing"]["compile_s"],
                 "sync_ms": [1e3 * t for t in out["sync_s"]],
                 "max_memory_allocated_gb": peak / 1e9, "launches": launches,
+                "sgdm_leaves_by_route": sgdm_leaves,
                 "rows_identical_after_sync": identical, "card": smi}
         if cpu is not None:
             line.update(dtype="float32", cpu_losses=cpu["hist"],
@@ -882,6 +901,11 @@ def model_families(torch, counters, by_path, smi):
         if {k: launches[k] for k in want_attn} != want_attn:
             raise AssertionError(f"train {arch}: attention launches {launches}, "
                                  f"want {want_attn}")
+        # SGDM: every leaf of every cluster's step on the kernel, bf16 and f32
+        want_sgdm = (n_leaves[0] * N_CLUSTERS * STEPS, 0, n_leaves[1] * N_CLUSTERS * STEPS)
+        if (sgdm_leaves["kernel"], sgdm_leaves["plain"], launches["sgdm"]) != want_sgdm:
+            raise AssertionError(f"train {arch}: SGDM's leaves by route {sgdm_leaves}, "
+                                 f"{launches['sgdm']} launches, want {want_sgdm}")
         if not (len(identical) == STEPS // PERIOD and all(identical)):
             raise AssertionError(f"train {arch}: cluster rows differ after a sync")
         if not (math.isfinite(out["eval_loss"])
@@ -2695,6 +2719,145 @@ def radix_select_checks(torch, kernels, Q, k, Qf, kf, dev):
         free(torch)
 
 
+# ---- phase 2e: SGDM's update --------------------------------------------
+SGDM_STEPS = 2  # updates of each row held bit for bit, each with fresh grads
+# (weight decay, Nesterov): the train CLI's SGDM and the reference's default
+SGDM_CASES = ((0.0, False), (1e-4, False), (1e-4, True))
+# the train CLI at full width and these layers, on both configurations: the
+# counter shows every leaf of a real train step took the kernel
+SGDM_TRAIN_ARGV = ["--full", "--layers", "2", "--tiers", "2x2:H=2", "--sync", "sparse",
+                   "--omega-impl", "fused", "--batch-per-mu", "1", "--seq", "128",
+                   "--steps", "2", "--log-every", "1", "--device", "cuda"]
+
+
+def sgdm_configs():
+    """olmo-1b at full width and depth; DeepSeek-V2-Lite as its benchmark
+    cell holds it (``hflbench/configs/deepseek-v2-lite.json``): 7 layers,
+    16 held experts, a vocabulary of 12,800; and mamba2-780m at full width
+    and depth, whose f32 leaves (A_log, D, dt_bias, the norms) take the
+    kernel's f32 body at thousands of entries a leaf."""
+    from repro_torch.configs import get_config
+    return (get_config("olmo-1b"),
+            dataclasses.replace(get_config("deepseek-v2-lite"), num_layers=7,
+                                experts_held=16, vocab_size=12800),
+            get_config("mamba2-780m"))
+
+
+def bits_equal(torch, a, b):
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def sgdm_checks(torch, kernels, dev):
+    """Phase 2e (callable alone after ``_build.timed_build()``): SGDM's step
+    (both clusters' rows of a [2, ...] state, every leaf of the model) on the
+    kernel route against the plain route (``kernels.sgdm.sgdm_plain``, the
+    torch ops) on copies of the state, bit for bit in params and moments, at
+    every ``SGDM_CASES`` for each of ``sgdm_configs``; every leaf counts under
+    ``route=kernel``, one launch a leaf of nonzero size. Then a step timed on
+    both routes (weight decay 1e-4, the train CLI's) against its bound, 14 B
+    an entry of a bf16 param and 20 of an f32 one. Last, the train CLI's
+    runs of ``SGDM_TRAIN_ARGV``: every leaf on the kernel."""
+    import numpy as np
+
+    from repro_torch.kernels.sgdm import kernel as SK
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_model
+    from repro_torch.obs import MetricsRegistry, use_registry
+    from repro_torch.optim import SGDM
+    from repro_torch.utils.tree import tree_leaves
+
+    N = 2
+    tree = lambda xs: {f"l{i:03d}": x for i, x in enumerate(xs)}
+    for cfg in sgdm_configs():
+        shapes = [(tuple(x.shape), x.dtype)
+                  for x in tree_leaves(init_model(None, cfg, device="meta"))]
+        Q = sum(math.prod(s) for s, _ in shapes)
+        sent = sum(1 for s, _ in shapes if math.prod(s))  # leaves launched
+        gen = torch.Generator(device=dev).manual_seed(31)
+        rnd = lambda shape, scale, dt: (
+            scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
+        P = [rnd((N, *s), 0.02, dt) for s, dt in shapes]
+        M = [rnd((N, *s), 1e-3, torch.float32) for s, _ in shapes]
+        rows = lambda xs, n: tree([x[n] for x in xs])
+        for wd, nesterov in SGDM_CASES:
+            Pp, Mp = [p.clone() for p in P], [m.clone() for m in M]
+            opt = SGDM(momentum=0.9, weight_decay=wd, nesterov=nesterov)
+            launches = SK.sgdm_update.launches
+            with use_registry(MetricsRegistry()) as reg:
+                for step in range(SGDM_STEPS):
+                    lr = float(np.float32(0.1 / (step + 1)))
+                    for n in range(N):
+                        G = [rnd(s, 1e-2, dt) for s, dt in shapes]
+                        opt.update(tree(G), {"m": rows(M, n)}, rows(P, n), lr)
+                        for g, m, p in zip(G, Mp, Pp):
+                            SK.sgdm_plain(g, m[n], p[n], lr, 0.9, wd, nesterov)
+                        del G
+            torch.cuda.synchronize()
+            for i, (a, b) in enumerate(zip([*P, *M], [*Pp, *Mp])):
+                if not bits_equal(torch, a, b):
+                    raise AssertionError(f"sgdm[{cfg.name}, wd {wd}, nesterov {nesterov}]: "
+                                         f"leaf {i % len(P)} differs from the plain route")
+            leaves = reg.counter("optim.sgdm_leaves")
+            counted = (leaves.value(route="kernel"), leaves.value(route="plain"))
+            launched = SK.sgdm_update.launches - launches
+            if (*counted, launched) != (len(shapes) * N * SGDM_STEPS, 0,
+                                        sent * N * SGDM_STEPS):
+                raise AssertionError(f"sgdm[{cfg.name}]: leaves by route {leaves.series}, "
+                                     f"{launched} launches")
+            emit({"check": "sgdm", "arch": cfg.name, "layers": cfg.num_layers, "Q": Q,
+                  "leaves": len(shapes), "rows": N, "steps": SGDM_STEPS,
+                  "weight_decay": wd, "nesterov": nesterov, "bitwise_equal": True,
+                  "leaves_by_route": {"kernel": counted[0], "plain": counted[1]},
+                  "launches": launched})
+            del Pp, Mp
+            free(torch)
+
+        # a step, both rows, at the train CLI's weight decay; fixed grads
+        G = [rnd(s, 1e-2, dt) for s, dt in shapes]
+        opt = SGDM(momentum=0.9, weight_decay=1e-4)
+        row_trees = [(rows(M, n), rows(P, n)) for n in range(N)]
+
+        def kernel_step():
+            for m, p in row_trees:
+                opt.update(tree(G), {"m": m}, p, 0.05)
+
+        def plain_step():
+            for n in range(N):
+                for g, m, p in zip(G, M, P):
+                    SK.sgdm_plain(g, m[n], p[n], 0.05, 0.9, 1e-4, False)
+
+        ms = cuda_ms(torch, kernel_step, 10)
+        plain_ms = cuda_ms(torch, plain_step, 2)
+        nbytes = N * sum(math.prod(s) * (3 * torch.empty((), dtype=dt).element_size() + 8)
+                         for s, dt in shapes)
+        b, by = bound_ms(nbytes)
+        kernels.setdefault("sgdm", {})[cfg.name] = entry = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+            max_abs_err=0.0, elements=N * Q, bytes=nbytes, share_of_bound=b / ms,
+            launches_a_step=N * sent)
+        emit({"timing": "sgdm", "shape": cfg.name, **entry})
+        del P, M, G, row_trees
+        free(torch)
+
+    # the train CLI's step at full width: every leaf's update on the kernel
+    for arch in ("olmo-1b", "deepseek-v2-lite"):
+        launches = SK.sgdm_update.launches
+        with use_registry(MetricsRegistry()) as reg:
+            out = train.run(train.parse_args(SGDM_TRAIN_ARGV + ["--arch", arch]))
+            torch.cuda.synchronize()
+        leaves = reg.counter("optim.sgdm_leaves")
+        counted = (leaves.value(route="kernel"), leaves.value(route="plain"))
+        if counted[1] or not counted[0] or not all(map(math.isfinite, out["hist"])):
+            raise AssertionError(f"sgdm train {arch}: leaves by route {leaves.series}, "
+                                 f"losses {out['hist']}")
+        emit({"check": "sgdm_train", "arch": arch, "argv": SGDM_TRAIN_ARGV,
+              "leaves_by_route": {"kernel": counted[0], "plain": counted[1]},
+              "launches": SK.sgdm_update.launches - launches, "losses": out["hist"]})
+        del out
+        free(torch)
+
+
 def long_decode(torch, by_path, smi, kernels):
     """Phase 14: (a) decode_32k through ``launch.steps.build_decode_step`` at
     full width (``DECODE_RUNS``): decode ms/step (first step excluded), the
@@ -2864,6 +3027,7 @@ def main(argv):
         from repro_torch.kernels.fused_sync import kernel as FK
         from repro_torch.kernels.fused_sync import ops as fops
         from repro_torch.kernels.radix_select import kernel as RS
+        from repro_torch.kernels.sgdm import kernel as SK
         from repro_torch.launch import comm_bits
         from repro_torch.launch import noniid_hfl
         from repro_torch.launch import paper_accuracy as pa
@@ -2910,6 +3074,8 @@ def main(argv):
     # the main path's sizes, from the port's own model at full width
     cfg = get_config("olmo-1b")
     spec = fl.spec_of(init_model(None, cfg, device="meta"))  # shapes only
+    n_leaves = len(tree_leaves(init_model(None, cfg, device="meta")))
+    n_sent = sum(1 for x in tree_leaves(init_model(None, cfg, device="meta")) if x.numel())
     Q = spec.total
     k_ul = sp.keep_count(Q, 0.9)
     emit({"phase": "sizes", "arch": cfg.name, "Q": Q, "k": k_ul})
@@ -3289,6 +3455,10 @@ def main(argv):
     radix_select_checks(torch, kernels, Q, k_ul, Qf, kf, dev)
     free(torch)
 
+    # ---- 2e. SGDM's update ----------------------------------------------------
+    sgdm_checks(torch, kernels, dev)
+    free(torch)
+
     # ---- 4. the main path ---------------------------------------------------
     counters = {"block_select": FK.block_select, "update_max": DK.update_max,
                 "tail_hist": DK.tail_hist, "apply_mask": DK.apply_mask,
@@ -3307,7 +3477,8 @@ def main(argv):
 
         free(torch)
         torch.cuda.reset_peak_memory_stats()
-        for fn in (*counters.values(), *attn_counters.values(), RS.radix_select):
+        for fn in (*counters.values(), *attn_counters.values(), RS.radix_select,
+                   SK.sgdm_update):
             fn.launches = 0
         args = train.parse_args(MAIN_ARGV + ["--omega-impl", impl])
         with use_registry(MetricsRegistry()) as reg:
@@ -3325,6 +3496,13 @@ def main(argv):
                 0, launches["radix_select"]):
             raise AssertionError(f"{impl}: exact rows {exact.series}, radix_select "
                                  f"launched {launches['radix_select']} times")
+        # every leaf's update takes SGDM's kernel: one launch a leaf a cluster a step
+        launches["sgdm"] = SK.sgdm_update.launches
+        sgdm = reg.counter("optim.sgdm_leaves")
+        if ((sgdm.value(route="kernel"), sgdm.value(route="plain"), launches["sgdm"])
+                != (n_leaves * N_CLUSTERS * STEPS, 0, n_sent * N_CLUSTERS * STEPS)):
+            raise AssertionError(f"{impl}: SGDM's leaves by route {sgdm.series}, "
+                                 f"launched {launches['sgdm']} times")
         peak = torch.cuda.max_memory_allocated()
         # which selections the block_select candidates answered, and which
         # the exact fallback answered after the kernel ran
@@ -4304,6 +4482,8 @@ def main(argv):
         # no TPU kernel: the reference's lax.top_k (the exact fallback)
         "radix_select": ("src/repro_torch/csrc/radix_select.cu",
                          "src/repro/core/sparsify.py:pack_topk"),
+        # no TPU kernel: the reference's jnp SGDM under jit (XLA fuses it)
+        "sgdm": ("src/repro_torch/csrc/sgdm.cu", "src/repro/optim/sgd.py:SGDM"),
     }
     # the headline numbers at the shape of the path each kernel came with;
     # every shape timed under "shapes"
@@ -4315,7 +4495,7 @@ def main(argv):
                    "mla_decode_attn": "deepseek-v2 decode_32k",
                    "decode_attn_tc": "granite-34b decode_32k",
                    "mla_decode_attn_tc": "deepseek-v2 decode_32k",
-                   "radix_select": "olmo-1b"}
+                   "radix_select": "olmo-1b", "sgdm": "olmo-1b"}
     rows = []
     for name, (source, replaces) in meta.items():
         k = kernels[name][first_shape[name]]

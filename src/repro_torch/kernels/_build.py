@@ -53,6 +53,7 @@ SIGNATURES = {
     "rt_decode_attn_tc": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "rt_mla_decode_attn_tc": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
     "rt_radix_select": [P, LL, LL, LL, P, P, P, P, P, P],
+    "rt_sgdm": [P, P, P, LL, I, I, F, F, F, I, P],
 }
 
 

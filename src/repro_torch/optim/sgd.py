@@ -8,7 +8,14 @@ reference), each update cast back to the param's dtype.
 
 ``update`` works IN PLACE: the param and moment tensors are overwritten
 and returned (the reference's jitted step donates them instead), so a
-full-size model holds one copy of its optimizer state. AdamW's step
+full-size model holds one copy of its optimizer state. SGDM's update goes
+leaf by leaf, by device, to one of two routes that round alike, bit for bit
+(``kernels.sgdm``): every CUDA leaf to the hand-written kernel, one pass a
+leaf, which raises on a leaf it cannot take (``kernels.sgdm.takes``:
+contiguous, an f32 moment, a bf16 or f32 param and grad); every other leaf
+(the CPU, ``meta``) to the torch ops of ``kernels.sgdm.sgdm_plain``. Each
+leaf updated counts once in
+``optim.sgdm_leaves{route=kernel|plain}`` of the ambient registry. AdamW's step
 counter ``t`` is an int64 CPU tensor, advanced in place too: 0-d for one
 model, [N] per cluster in an ``HFLState`` (``core.hfl.hfl_init`` widens it
 as the reference's vmapped ``init`` does), where each cluster's update
@@ -20,13 +27,9 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels.sgdm import kernel as _sgdm
+from repro_torch.obs.metrics import current_registry
 from repro_torch.utils.tree import tree_leaves, tree_map
-
-
-def _decayed(g, p, wd):
-    if not wd:
-        return g
-    return g + (wd * p.float() if p.ndim >= 2 else 0.0)
 
 
 @dataclass(frozen=True)
@@ -41,12 +44,20 @@ class SGDM:
 
     @torch.no_grad()
     def update(self, grads, state, params, lr):
+        hyper = (lr, self.momentum, self.weight_decay, self.nesterov)
+        routes = {"kernel": 0, "plain": 0}
         for g, m, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                            tree_leaves(params)):
-            g = _decayed(g.float(), p, self.weight_decay)
-            m.mul_(self.momentum).add_(g)
-            step = (g + self.momentum * m) if self.nesterov else m
-            p.copy_((p.float() - lr * step).to(p.dtype))
+            if p.device.type == "cuda":
+                _sgdm.sgdm_update(g, m, p, *hyper)
+                routes["kernel"] += 1
+            else:
+                _sgdm.sgdm_plain(g, m, p, *hyper)
+                routes["plain"] += 1
+        leaves = current_registry().counter("optim.sgdm_leaves")
+        for route, n in routes.items():
+            if n:
+                leaves.inc(n, route=route)
         return params, state
 
 

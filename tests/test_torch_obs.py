@@ -480,6 +480,9 @@ def _check_same_telemetry(jeng, teng):
     # reference keeps none): on the CPU every row takes the torch ops
     exact = ts.pop("sparsify.exact_topk_rows", None)
     assert exact is None or set(exact["series"]) == {"route=plain"}
+    # ... and of the leaves SGDM updates, by route: on the CPU the torch ops
+    sgdm = ts.pop("optim.sgdm_leaves", None)
+    assert sgdm is None or set(sgdm["series"]) == {"route=plain"}
     assert ts.keys() == js.keys()
     for name in js:
         if name in MODEL_GAUGES:
