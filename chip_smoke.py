@@ -4,316 +4,49 @@ the port starts and computes the right thing on the card.
 
     python3 chip_smoke.py                # from the root of a checkout
 
-Phases (each ends in ``torch.cuda.synchronize()``; any failure exits
-nonzero):
-  1. print the card's name and power limit; build the CUDA kernels from
-     ``src/repro_torch/csrc`` and print the build seconds and each kernel's
-     registers, spills and shared memory (``-Xptxas -v``), each attention
-     kernel's resources (``cuobjdump -res-usage``: the bf16 ones keep no
-     stack, so nothing spills) and the count of its ``HGMMA`` and
-     ``UTMALDG`` SASS instructions (``cuobjdump -sass``; nonzero for the
-     bf16 ones);
-  2. hold every kernel against its plain PyTorch version on the card,
-     bitwise, on edge cases and at the paths' shapes (one JSON line per
-     check), and time kernel and plain version there; ``block_select`` on
-     the boundaries of its design (``cap_blk`` at, one before and one after
-     a warp's and a CTA's span, 1 and ``BLOCK_ELEMS``; a length ending
-     inside a span of the last tile; a tile of candidates only; NaN and
-     ±inf entries), ``tail_hist`` on elements equal to edges, NaN/±inf/±0,
-     collapsed edges, 1, 64 and 256 bins, 3 and 5 tiles and the real
-     ResNet-18 gradient, which is timed beside the gaussian with the device
-     time of its two passes (slice counts, ordered sum) from a short
-     ``torch.profiler`` capture; ``apply_mask`` is
-     compared as bit patterns (signs of zeros included), and
-     ``omega_pallas``/``dgc_step_pallas`` on the card against the same
-     functions on CPU copies at one row of the faithful path's Q; so is
-     the fused Ω there (``sparsify.omega(impl="fused")``), with
-     ``block_select`` against its plain version at that row's own tile
-     capacity and threshold, on a real full-width ResNet-18 gradient
-     (more candidates than the buffer holds), randn**3 (heavy-tailed, the
-     candidates answer) and a gaussian scaled up along the row (the
-     total fits, the last tiles overflow); the branch the kernel's tile
-     counts decide must be the one the card's selection took;
-     ``bitpack`` against its plain version (bytes and popcounts) on edge
-     cases (n = 5, a ragged two-block n, NaN/±0/±inf/subnormal entries,
-     all-zero and all-one masks), on its design's boundaries (one tile,
-     43 tiles, bits on both sides of every chunk and CTA span of three
-     tiles) and at the comm path's and olmo-1b's shapes, with the
-     occupancy calculator's clusters at once and the waves they make; and
-     ``block_select``, ``update_max``, ``tail_hist`` and ``bitpack`` timed
-     at one row of the faithful path's Q with the L2 cache flushed before
-     every launch (the row fits in the 50 MB L2), each after a flush that
-     writes and after one that reads (``bitpack`` also beside the events'
-     own floor);
-  2d. the exact top-k's radix select (``kernels/radix_select``,
-     ``csrc/radix_select.cu``; ``radix_select_checks``): the kernels'
-     winners and keys, and the ordered positions, bit for bit against the
-     plain version and the torch route of ``stable_topk_positions``, at
-     olmo's row (Q entries made from a seed like a sync's bf16 drift:
-     ``DRIFT_ZEROS`` shares of zeros, the rest crowded into six exponents;
-     starting off a 16-B boundary, as the second row of an [R, Q] matrix
-     with odd Q does), the faithful row (Q = 11,173,962; also against a
-     CPU copy) and small rows (NaN, ±inf, ±0.0, subnormals; k = 1, n; one
-     entry; every offset in a 16-B chunk); each size timed beside its
-     bound (five reads of the row, 8 B a winner), the torch route's time
-     and the device time of each kernel and the sort;
-  2e. SGDM's update (``kernels/sgdm``, ``csrc/sgdm.cu``; ``sgdm_checks``):
-     a step of both rows of a [2, ...] state on the kernel against the
-     torch ops, bit for bit in params and moments, on full-width olmo-1b,
-     DeepSeek-V2-Lite as its benchmark cell holds it and mamba2-780m (f32
-     leaves beside bf16 ones), with and without weight decay and Nesterov,
-     one launch a leaf; timed beside its bound and the torch ops; then two
-     full-width train CLI runs whose every leaf takes the kernel;
-  3. fused selection on a gaussian [2, Q] matrix: ``select_topk_rows``
-     (the ``block_select`` pipeline, which must answer it without the
-     exact fallback) against the exact stable sort, timed
-     beside ``torch.topk`` as the library yardstick;
-  4. the main path: full-width olmo-1b through ``repro_torch.launch.train``
-     at ``--full --tiers 2x2:H=2 --sync sparse --batch-per-mu 4 --seq 128``
-     for 4 steps (2 syncs), once with ``--omega-impl fused`` and once with
-     ``--omega-impl pallas``; launch counts are zeroed just before and read
-     just after each run (the attention kernels' too: with remat, two
-     forwards and one backward a layer a cluster a step, plus the eval's
-     forward; SGDM's, one a leaf a cluster a step), and the fused run says how many of its
-     selections the ``block_select`` candidates answered and how many the
-     exact fallback answered;
-  5. the paper-exact path: full-width ResNet-18 under ``FaithfulHFL``
-     through ``repro_torch.launch.paper_accuracy.run`` at the paper's
-     geometry (7 clusters x 4 MUs, H = 4, φ = (0.99, 0.9, 0.9, 0.9),
-     β_s = 0.5, β_m = 0.2, σ = 0.9), batch 64 per MU, lr 0.05, 8 steps
-     (2 syncs), once with ``--omega-impl pallas`` and once with ``fused``;
-     every Ω row is one launch, (K + N)·S + (2N + 1)·⌊S/H⌋ = 310 of each
-     kernel of the impl, counts zeroed just before each run; after every
-     step every row of u and v must hold >= k zeros; the fused run says
-     which selections the ``block_select`` candidates answered, by hop;
-     the pallas run keeps its state after step 7, the one before the
-     second sync; then the non-IID twin (``launch.noniid_hfl.run``: the
-     iid, label-sorted and dirichlet(0.3) splits, batch 16 per MU, H = 4,
-     ``pallas``) for ``NONIID_STEPS`` = 4 steps each, one sync each,
-     3·((K + N)·4 + 2N + 1) = 465 launches of each DGC kernel, the same
-     u/v zeros check;
-  6. the comm path on that state, as an ``HFLState`` over the ResNet-18
-     tree at 7 clusters (φ = 0.9 up and down, β_s = 0.5, β_m = 0.2):
-     ``comm.make_sync_probe`` for every registered codec with ``pallas``
-     and ``fused`` Ω; the pallas probe's 7 uplink and 1 downlink payloads
-     bit-equal to the same probe on a CPU copy, the state unchanged,
-     ``make_sync`` on a copy of the state sending each impl's probed
-     payloads (w_ref and eps bit for bit),
-     device bit counts equal to the host ``measure_bits``, the bitmap
-     streams through ``bitpack`` equal to numpy's and decoding back,
-     ``bitmap_payload`` of the downlink card = CPU, a ``PayloadLedger``
-     per codec beside the analytic 32·(1 - φ), ``bitpack`` launched once
-     per kernel-path encode and ``bitmap_payload`` call, the
-     ``launch.comm_bits`` entry point on the card, and the async
-     per-cluster sync (``sim.engine.make_async_sync_step``, sparse
-     downlink, cluster 3) with ``pallas`` and ``fused`` Ω on the card
-     against a CPU copy: w_ref, eps[n], e_dl[n], row n and the device bit
-     counts equal, two launches of each kernel of the impl; and the tiered
-     cascade (``core.hfl.HierSyncStep``) on a random depth-3 state of that
-     Q, 2 edges x 3 clusters, with ``pallas`` and ``hist``: the hier
-     probe's bits of a top-2 boundary, that cascade, a unit sync and a root
-     push, every row card = CPU bit for bit, 27 launches each;
-  7. the simulator's path, nine runs through ``repro_torch.launch.train``
-     (``sim.scenarios.build_engine`` and ``SimEngine.run``, or
-     ``core.schedule.run_hfl``) at full olmo-1b width, 4 steps:
-     ``paper-fig3`` (lockstep, 7 x 4 MUs, H = 2, ``FIG3_LAYERS`` layers,
-     ``pallas`` Ω, measured accounting with ``delta-varint``),
-     ``stragglers`` (deadline, ``2x2:H=2``, full depth, ``fused`` Ω,
-     ``--sim-seed 3``: the deadline drops a straggler), ``dropout``
-     (lockstep with participation resampling, ``2x2:H=2``, full depth,
-     ``pallas`` Ω, ``--sim-seed 8``: a cluster sits out each round),
-     ``async`` (``2x2:H=2``, full depth, ``pallas`` Ω, sparse downlink,
-     measured ``delta-varint``), ``trace-replay`` (async over a replayed
-     trace with ``move`` residency, ``2x2:H=2``, full depth, ``fused`` Ω,
-     ``--sim-seed 25``: an MU re-associates within the run) and
-     ``scale-1m`` (async, the live 1.05M-MU fleet behind 7 x 4 slots,
-     ``pallas`` Ω, ``SCALE_LAYERS`` layers), then the depth-3 trees (2
-     edges x 2 SBSs x 4 MUs, ``HIER_LAYERS`` layers, ``pallas`` Ω):
-     ``hier-3tier`` (measured ``delta-varint``, the hier probe; tops 1 and
-     2, 30 launches each), ``hier-deadline`` (``--sim-seed 0``: an MU is
-     dropped; 15 launches) and the async-root tree ``--tiers
-     2x2x4:H=2,2:async`` without a scenario (the unit scheduler through
-     ``run_hfl``: 4 unit syncs and 2 root pushes, 14 launches), checking
-     the rows identical under each aggregator of the top that fired, each
-     pushing unit's rows equal to the new root reference, the ledger's
-     per-boundary links equal to the probe's counts, and every peak under
-     ``PEAK_LIMIT_GB``; the lockstep/deadline runs
-     check the cluster rows identical after every sync and a sat-out
-     cluster's params and momentum rows bitwise unchanged by a train step;
-     the async runs check every masked step leaves the other clusters'
-     params and momentum rows bitwise unchanged and, after each event's
-     sync, the active row equal to its value before plus the received
-     payload; all check finite losses and every kernel's launches against
-     the count the trace implies, paper-fig3 and async the ledger's
-     fronthaul bits against the probe's (the events') counts, and the
-     residency runs the shards' conservation and a re-association
-     (``scale-1m`` after moving its fleet one 600 s repricing interval
-     on, since the run is shorter); each prints steady s/step, sync ms,
-     peak memory, the virtual wall-clock and the drops (and, async, the
-     staleness and weight) per trace row; ``hier-3tier`` also writes its
-     ``--trace-viz`` export and ``--metrics-out`` run log (into
-     ``build/chip_smoke_obs/``), which must validate, pass
-     ``tools/trace_summary.py --check`` (span bits = the tracer's books =
-     the ledger's on every tier boundary's links) and agree with the
-     registry's launch and ``comm.bits`` totals;
-  8. the obs path (``repro_torch.obs`` through the train CLI's flags):
-     (a) phase 7's paper-fig3 run again with ``--obs-health --trace-viz
-     --metrics-out --obs-heartbeat 1``: its losses bit for bit, virtual
-     wall clock and ``update_max``/``tail_hist`` launches equal to phase
-     7's, both steady s/step and their ratio, the health ingest's host
-     seconds per sync, no anomaly, the health counter tracks in the trace,
-     the outputs checked as hier-3tier's; (b) ``async`` (``2x2:H=2``,
-     ``OBS_LAYERS`` layers, measured ``delta-varint``) with
-     ``--obs-health --metrics-out``: per-cluster statistics finite, the
-     ``sim.staleness`` histogram per cluster, conservation exact, 2
-     launches per event, the peak; (c) scenario-free ``2x2:H=2`` at
-     ``OBS_LAYERS`` layers with ``--obs-hlo-cost --metrics-out``: the
-     first train step's and sync's flops, bytes and profiler launch
-     counts, the train flops beside 6 · params · tokens, the losses equal
-     to the same run without the flag;
-  9. the model families (``model_families``): (a) the serving twin
-     (``launch.serve_batched.run``, the example's batch 8, prompt 48 and 16
-     new tokens, ``--full``, bf16) for all ten architectures, at full depth
-     but for granite-34b and llava-next-34b (16 layers) and dbrx-132b and
-     deepseek-v2-236b (2 layers, ``SERVE_LAYERS``): finite logits, tokens
-     [8, 16], prefill ms, decode ms per step, the peak, one attention
-     forward launch per attention site (``attn_sites``) and one decode
-     kernel launch a site a decode step (``decode_attn``, deepseek-v2's
-     ``mla_decode_attn``, each on the kernel its route picks;
-     ``decode_launches_want``); (b) decode ==
-     forward at full width in f32 (``CACHE_RUNS``: danube, deepseek-v2 and
-     dbrx at 2 layers with a ``capacity_factor`` that drops no token, 8 or
-     E / K where larger, mamba2 at 2 layers with a
-     300-token prompt across its SSD chunk, zamba2 at 7 layers, llava at 2
-     layers): prefill with ``max_len`` = prompt + frontend + 3, three
-     decode steps against the full-sequence logits at rtol/atol 2e-3 (two
-     attention forward launches a site: the forward and the prefill; three
-     decode launches a site); and
-     every reduced configuration's forward card = CPU in f32 at 1e-4; (c)
-     HFL training through ``train.run`` at ``2x2:H=2 --sync sparse
-     --batch-per-mu 4 --seq 128``, 4 steps (``FAMILY_TRAIN``): mamba2-780m
-     at full depth (``pallas``), zamba2-7b at 7 layers (``fused``),
-     musicgen-medium at 16 layers with its 256 audio frames (``pallas``)
-     and deepseek-v2 reduced in f32 (``pallas``), whose losses must equal
-     the same run on the CPU at rtol 1e-4; full-width MoE training waits
-     for ROADMAP Queue 1 item 16 part 3, a machine with four cards (one
-     deepseek-v2 layer is ~3.97B params, ~200 GB of HFL state at N = 2).
-     Each run: 6 launches of each kernel of its impl, the attention
-     launches the path implies (``train_attn_want``), every leaf's SGDM
-     update on the kernel (one launch a leaf a cluster a step), the rows identical
-     after each sync, finite losses, the steady s/step, sync ms and a peak
-     under ``PEAK_LIMIT_GB``;
- 10. the sharded flat vector and the mesh syncs (``sharded_paths``): (a)
-     the main path's run with ``--flat-shards 4`` (full olmo-1b width and
-     depth, ``fused`` Ω): S·(N + 1) = 12 ``block_select`` launches per sync
-     plus the second launches it prints, the attention launches the path
-     implies, the rows identical after each
-     sync, each hop's exactness certificate printed; the last sync's input
-     copied to the host (the copy's seconds are taken off its sync ms) and
-     that sync run again with the plain compaction on the card, every
-     output row equal bit for bit (64-bit position-weighted fingerprints of
-     the bit patterns), and, where every certificate held, equal to the
-     unsharded fused sync's; (b) 4 rank processes on the card, gloo,
-     (data, model) = (2, 2), each building only its piece of a seeded
-     state at olmo-1b's full Q (``seeded_flat_shard``): each piece's
-     outputs equal the single-process emulation's on the same vectors,
-     ``block_select`` 3 times per rank (+ second launches); (c) 8 rank
-     processes, gloo, (pod, data, model) = (2, 2, 2), the pod flat layout
-     with ``pallas`` Ω and the leaf layout with ``topk`` on each rank's
-     blocks of olmo-1b at full width and ``POD_LAYERS`` layers: consensus,
-     conservation and adoption, 2 ``update_max`` and 2 ``tail_hist``
-     launches per rank on the flat layout, and both layouts at the tests'
-     narrow size card = CPU bit for bit. NCCL across cards waits for a
-     machine with four cards;
- 11. one JSON line listing every ported kernel with its launches on each
-     path (and their sum), error, times and bound; it comes last, after
-     12, 13 and 14;
- 12. checkpoints and the dry-run (``checkpoint_and_dryrun``): (b) the
-     dry-run of olmo-1b x train_4k on both production meshes (``meta``
-     tensors over a fake process group: nothing allocated), and its
-     argument bytes of (a)'s state on a one-rank mesh against the growth of
-     ``torch.cuda.memory_allocated`` across ``hfl_init`` on the card,
-     within 512 B a leaf; (a) the train CLI with ``--ckpt-dir`` at full
-     olmo-1b width and ``CKPT_LAYERS`` layers, ``2x2:H=2``, 4 steps, with
-     ``fused``, ``pallas`` and ``fused --flat-shards 4``: the file (~5.6 GB)
-     restored into a fresh card state (every leaf bit for bit, written in
-     place into the flat buffers the sync finds), its sha256 equal to the
-     CPU encoder's on a host copy of the saved state, and one more period
-     (2 steps and a sync) from the saved and from the restored state with
-     equal fingerprints and the impl's launches (``block_select``, or
-     ``update_max`` and ``tail_hist``; the train CLI run's attention
-     launches too); it prints the file's GB, write and
-     read seconds and GB/s, the free disk (it fails when the file cannot
-     fit) and the host's resident set during the write, the read and the
-     CPU encoding;
- 13. long context (``long_context``): (a) the main
-     path at train_4k's length, ``LONG_ARGV`` (full olmo-1b, ``--seq 4096
-     --batch-per-mu 1``, fused, 4 steps): s/step, sync ms, peak, the
-     attention kernels' launches against what the path implies (remat's
-     recompute and the eval's 8,192-token chunks included) and
-     ``block_select``'s; one cluster's loss forward and backward at [2,
-     4096] with ``remat`` off and on (the same loss, the gradients
-     held bit for bit, both peaks); (b) the serving twin at
-     prefill_32k's length, batch 2, 8 new tokens, for olmo-1b and
-     danube3-4b (window 4096, the ring cache wrapping): prefill s, decode
-     ms/step, peak, one forward launch a layer and one decode launch a layer
-     a decode step; decode == forward in f32 at 2 layers and lengths the
-     reference takes (``LONG_CACHE_RUNS``) at 2e-3; (c) ``flash_attn_fwd``/``flash_attn_bwd`` against their plain
-     versions at ``ATTN_SHAPES`` (the paths' shapes: olmo's train_4k,
-     13b's two prefills, forward only for danube's, phase 4's cluster
-     batch; danube's window and GQA at 8,192, MLA, and the edge cases) in
-     f32 (forward rtol 1e-5 / atol 1e-6, gradients 1e-4 / 1e-5) and bf16
-     (one bf16 ulp, at most ``BF16_DIFF_SHARE`` of the entries' bits
-     differing, and the f32 ``o32`` at the f32 tolerance), two backward
-     launches bit for bit; two lower-precision controls (P rounded once to
-     bf16, and SDPA's flash backend) must fail those checks at
-     ``ATTN_CONTROLS``; then both kernels timed at olmo's train_4k and
-     prefill_32k shapes beside their bounds (every product at the bf16
-     tensor-core rate, those with the f32 P or dS three times), SDPA
-     (efficient backend) on f32 copies, and SDPA's flash backend on the
-     bf16 inputs (it rounds P to bf16: not the same function);
- 14. decode at the long shapes (``long_decode``, before the summary), each
-     run from a seeded cache in the state a context of the shape's length
-     less 8 tokens leaves (``seeded_cache``: nothing prefills, as in the
-     reference's dry-run), then 8 greedy steps through
-     ``launch.steps.build_decode_step`` at full width: (a) decode_32k
-     (``DECODE_RUNS``): olmo-1b at full depth, batch 16 (cut from 128: the
-     cache is 4.295 GB a sequence), danube3-4b at full depth and the full
-     batch 128 (its 4,096-slot ring wrapped eight times), deepseek-v2 at 2
-     layers, batch 128; (b) long_500k, batch 1, full depth, for mamba2-780m,
-     zamba2-7b and danube3-4b (``LONG_ARCHS``), then danube3-4b at 2 layers
-     and zamba2-7b at 7 in f32 decoding 4 tokens from one seeded state on
-     the card and on a CPU copy (``LONG_CPU_RUNS``): logits at 2e-3, pos and
-     slot_pos equal, the written slots at 2e-3; each run prints decode
-     ms/step (first step excluded), the cache's GB, the peak (under
-     ``PEAK_LIMIT_GB``) and the decode kernels' launches against attention
-     sites x steps, on the kernel the wrappers' route picks (bf16 MLA and
-     bf16 G >= 2: the tensor-core kernels, ``*_tc``); (c) ``decode_attn``
-     and ``mla_decode_attn`` against their plain versions at
-     ``DECODE_SHAPES`` / ``MLA_SHAPES`` (each attention config's decode_32k
-     layer, danube's wrapped ring, zamba2's long_500k ring, empty slots, one
-     valid slot, S = 1, an S no split divides, a window that masks most
-     slots, D = 16 / 32, G = 64, splits the 32-slot tiles do not divide;
-     deepseek-v2's latent at batch 128, 40 heads, r = 64 / dr = 16) on the
-     routed kernel in f32 (``ATTN_TOL``'s forward) and bf16 (one ulp, at
-     most ``BF16_DIFF_SHARE`` of the bits differing), the bf16 entries the
-     tensor-core kernels take once more on the CUDA-core kernels, two
-     launches bit for bit; at ``DECODE_CONTROLS`` the plain version with the
-     softmax weights rounded once to bf16 must fail the bf16 check; then
-     timed at ``DECODE_TIMED`` (olmo-1b's decode_32k layer at batch 16,
-     granite-34b's, starcoder2-3b's and danube3-4b's ring at batch 128,
-     deepseek-v2's latent at batch 128; the CUDA-core kernel beside the
-     tensor-core one) beside their bounds (``decode_bound``), their plain
-     versions and one SDPA call on f32 copies with a boolean mask.
+It takes no arguments. Each phase is a function ``phase(torch, card)``
+whose docstring says what it checks; ``main`` runs them in this order, each
+ending in ``torch.cuda.synchronize()``, and any failure exits nonzero:
+  1.  ``setup``: the card, the build, each kernel's registers and spills,
+      the bf16 attention kernels' SASS, the paths' sizes -> the ``Card``;
+  2.  ``kernel_checks``: the sync kernels against their plain versions;
+  3.  ``fused_selection``: the fused selection on a gaussian [2, Q];
+  2d. ``radix_select_checks``: the exact top-k's radix select;
+  2e. ``sgdm_checks``: SGDM's update;
+  4.  ``main_path``: full-width olmo-1b through the train CLI;
+  5.  ``faithful_path``: full-width ResNet-18 under ``FaithfulHFL``;
+  6.  ``comm_path``: the comm layer on phase 5's sync state;
+  7.  ``sim_path``: the simulator's nine runs at full olmo-1b width;
+  8.  ``obs_path``: the obs flags, 8a against phase 7's paper-fig3 run;
+  9.  ``model_families``: every architecture family;
+  10. ``sharded_paths``: the sharded flat vector and the mesh syncs;
+  12. ``checkpoint_and_dryrun``: checkpoints and the dry-run;
+  13. ``long_context``: train_4k's and prefill_32k's lengths;
+  14. ``long_decode``: decode at decode_32k's and long_500k's shapes;
+  11. ``kernel_summary``: one JSON line listing every ported kernel.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits nonzero and prints no
-result. ``--profile DIR`` runs phases 4 and 5 under ``torch.profiler`` and
-writes the device time by kernel to ``DIR/profile_{fused,pallas}.txt`` and
-``DIR/profile_faithful_{pallas,fused}.txt``, with the device-busy share of
-the wall time (its timings then include the profiler's overhead).
+result.
+
+Any phase runs alone from a script under ``build/`` (ignored by git), run
+from the root of the checkout:
+
+    import sys; sys.path.insert(0, ".")
+    import torch, chip_smoke as cs
+    cs.alone(torch, cs.comm_path)
+
+``alone`` sets up as phase 1 does, runs the phase (6 and 8, which read
+phase 5's and 7's results, then make them themselves) and ends in the
+summary of the kernels that phase launched. Each launch count is read
+before and after its run (``LaunchCount``), so it does not depend on the
+phases run before. Phases 2, 3 and 6 draw their random data from the
+card's one generator, so run alone they draw other numbers than in a
+whole run.
 """
 import dataclasses
 import gc
+import hashlib
+import importlib.util
 import itertools
 import json
 import math
@@ -322,12 +55,55 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
+
+import numpy as np
 
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+# the port, from this checkout (it imports torch, after the allocator's setting)
+from repro_torch.checkpoint import msgpack_ckpt as ck  # noqa: E402
+from repro_torch.comm import accounting as acc, codecs as cod  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ARCHS, HFLConfig, get_config, get_shape, parse_tiers_spec)
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.configs.resnet18_cifar import CONFIG as PAPER  # noqa: E402
+from repro_torch.core import hfl as H, sparsify as sp  # noqa: E402
+from repro_torch.core.hfl import HFLState  # noqa: E402
+from repro_torch.data import SyntheticImages  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bitpack import kernel as BK, ops as bops  # noqa: E402
+from repro_torch.kernels.decode_attn import kernel as DA  # noqa: E402
+from repro_torch.kernels.decode_attn.ref import NEG_INF, valid_slots  # noqa: E402
+from repro_torch.kernels.dgc import kernel as DK, ops as dops  # noqa: E402
+from repro_torch.kernels.flash_attn import kernel as FA  # noqa: E402
+from repro_torch.kernels.fused_sync import kernel as FK, ops as fops  # noqa: E402
+from repro_torch.kernels.radix_select import kernel as RS  # noqa: E402
+from repro_torch.kernels.sgdm import kernel as SK  # noqa: E402
+from repro_torch.launch import (  # noqa: E402
+    comm_bits, dryrun as D, mesh as M, noniid_hfl, paper_accuracy as pa,
+    serve_batched, steps as st, train)
+from repro_torch.launch.steps import build_decode_step, make_loss_fn  # noqa: E402
+from repro_torch.launch.train import EVAL_CHUNK_TOKENS  # noqa: E402
+from repro_torch.models.frontends import fake_frontend_embeds  # noqa: E402
+from repro_torch.models.resnet import init_resnet18  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    decode_step, forward, init_cache, init_model, num_shared_attn_sites, prefill)
+from repro_torch.obs import (  # noqa: E402
+    MetricsRegistry, SpanTracer, torchprof, use_registry, validate_runlog,
+    validate_trace)
+from repro_torch.obs.health.monitor import HealthMonitor  # noqa: E402
+from repro_torch.obs.spans import use_tracer  # noqa: E402
+from repro_torch.optim import SGDM  # noqa: E402
+from repro_torch.sim import engine as E  # noqa: E402
+from repro_torch.sim.scenarios import apply_hfl_overrides, get_scenario  # noqa: E402
+from repro_torch.utils import flatten as fl  # noqa: E402
+from repro_torch.utils.tree import (  # noqa: E402
+    jax_leaves, tree_flatten, tree_leaves, tree_map, tree_unflatten)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -389,6 +165,8 @@ FAMILY_TRAIN = (("mamba2-780m", ["--full"], "pallas"),
                 ("zamba2-7b", ["--full", "--layers", "7"], "fused"),
                 ("musicgen-medium", ["--full", "--layers", "16"], "pallas"),
                 ("deepseek-v2-236b", [], "pallas"))
+# the kernels each Ω route of the LM paths launches, once a selected row
+IMPL_KERNELS = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
 MAIN_ARGV = ["--full", "--tiers", f"{N_CLUSTERS}x2:H={PERIOD}", "--sync", "sparse",
              "--batch-per-mu", "4", "--seq", "128", "--steps", str(STEPS),
              "--log-every", "1", "--device", "cuda"]
@@ -598,8 +376,6 @@ def split_by_hop(outcomes, steps, n_mus, n_clusters, period):
 
 def load_tool(name):
     """``tools/<name>.py`` of the checkout, loaded by path (stdlib only)."""
-    import importlib.util
-
     spec = importlib.util.spec_from_file_location(f"_{name}",
                                                   ROOT / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
@@ -613,8 +389,6 @@ def check_obs_outputs(name, args, out, eng):
     --check`` (span bits = the tracer's books = the ledger's, per link);
     the registry's launch and bit totals equal to the trace meta's and the
     ledger's. -> what the JSON line reports."""
-    from repro_torch.obs import validate_runlog, validate_trace
-
     errs = validate_runlog(args.metrics_out)
     if errs:
         raise AssertionError(f"obs {name}: run log {errs[:3]}")
@@ -679,59 +453,70 @@ def free(torch):
     torch.cuda.empty_cache()
 
 
-def profiled(torch, fn, path):
-    """Run ``fn`` under torch.profiler; write the kernel table to ``path``
-    and print the device-busy share of the wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class LaunchCount:
+    """Each kernel wrapper's launches since this object was made (``fns``:
+    name -> wrapper, whose ``launches`` attribute counts its kernel's
+    launches): ``read()`` -> {name: launches since}. Nothing is zeroed, so
+    what ran before does not show in a count."""
 
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    key = "self_device_time_total"
-    if not hasattr(next(iter(avg)), key):
-        key = "self_cuda_time_total"
-    busy_us = sum(getattr(e, key) for e in avg if e.device_type == DeviceType.CUDA)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(avg.table(sort_by=key, row_limit=40))
-    emit({"profile": path.name, "wall_s": wall, "device_busy_s": busy_us / 1e6,
-          "device_idle_share": 1.0 - busy_us / 1e6 / wall})
-    return out
+    def __init__(self, fns):
+        self.fns = dict(fns)
+        self.start = {k: fn.launches for k, fn in self.fns.items()}
+
+    def read(self):
+        return {k: fn.launches - self.start[k] for k, fn in self.fns.items()}
 
 
-def model_families(torch, counters, by_path, smi):
-    """Phase 9: every architecture family on the card (9a serving at full
-    width, 9b decode == forward at full width in f32 and the reduced
-    configs' forward card = CPU, 9c HFL training through ``train.run``);
-    adds each training run's kernel launches to ``by_path``."""
-    from repro_torch.configs import ARCHS, get_config
-    from repro_torch.kernels.sgdm import kernel as SK
-    from repro_torch.launch import serve_batched, train
-    from repro_torch.models.frontends import fake_frontend_embeds
-    from repro_torch.obs import MetricsRegistry, use_registry
-    from repro_torch.models.transformer import (
-        decode_step, forward, init_model, prefill)
-    from repro_torch.utils.tree import tree_leaves, tree_map
+def sync_kernels():
+    """The sync's kernels by name (their wrappers' ``launches`` counters)."""
+    return {"block_select": FK.block_select, "update_max": DK.update_max,
+            "tail_hist": DK.tail_hist, "apply_mask": DK.apply_mask,
+            "bitpack": BK.bitpack}
 
+
+def rows_identical(torch, state):
+    """Whether every cluster's row of each param equals cluster 0's."""
+    return all(torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
+               for n in range(1, P.shape[0]))
+
+
+def model_families(torch, card):
+    """Phase 9: every architecture family on the card. (a) The serving twin
+    (``launch.serve_batched.run``, the example's batch 8, prompt 48 and 16
+    new tokens, ``--full``, bf16) for all ten architectures, at full depth
+    but for the depth cuts of ``SERVE_LAYERS``: finite logits, tokens [8,
+    16], prefill ms, decode ms per step, the peak, one attention forward
+    launch per attention site (``attn_sites``) and one decode kernel launch
+    a site a decode step (``decode_attn``, deepseek-v2's
+    ``mla_decode_attn``, each on the kernel its route picks;
+    ``decode_launches_want``). (b) Decode == forward at full width in f32
+    (``CACHE_RUNS``): prefill with ``max_len`` = prompt + frontend + 3, three
+    decode steps against the full-sequence logits at rtol/atol 2e-3 (two
+    attention forward launches a site: the forward and the prefill; three
+    decode launches a site); and every reduced configuration's forward card
+    = CPU in f32 at 1e-4. (c) HFL training through ``train.run`` at
+    ``2x2:H=2 --sync sparse --batch-per-mu 4 --seq 128``, 4 steps
+    (``FAMILY_TRAIN``), deepseek-v2's losses equal to the same run on the
+    CPU at rtol 1e-4; full-width MoE training waits for ROADMAP
+    Queue 1 item 16 part 3, a machine with four cards (one deepseek-v2
+    layer is ~3.97B params, ~200 GB of HFL state at N = 2). Each run: 6
+    launches of each kernel of its impl, the attention launches the path
+    implies (``train_attn_want``), every leaf's SGDM update on the kernel
+    (one launch a leaf a cluster a step), the rows identical after each
+    sync, finite losses, sync ms and a peak under ``PEAK_LIMIT_GB``. Adds
+    each run's kernel launches to ``card.by_path``."""
     dev = torch.device("cuda")
     t9 = time.perf_counter()
     limit = PEAK_LIMIT_GB * 1e9
-    attn = attn_kernels()
+    attn, by_path, smi = attn_kernels(), card.by_path, card.smi
 
-    def attn_zero():
-        for fn in attn.values():
-            fn.launches = 0
-
-    def attn_check(what, forwards, decodes, cfg):
-        """The attention launches since ``attn_zero``: ``forwards`` no-grad
-        forwards of ``cfg`` launch the forward kernel at each attention
-        site, ``decodes`` decode steps the decode kernel at each, and
-        nothing launches the backward."""
+    def attn_check(what, since, forwards, decodes, cfg):
+        """The attention launches since ``since`` was made: ``forwards``
+        no-grad forwards of ``cfg`` launch the forward kernel at each
+        attention site, ``decodes`` decode steps the decode kernel at each,
+        and nothing launches the backward."""
         torch.cuda.synchronize()
-        got = {k: fn.launches for k, fn in attn.items()}
+        got = since.read()
         want = {"flash_attn_fwd": forwards * attn_sites(cfg), "flash_attn_bwd": 0,
                 **decode_launches_want(cfg, decodes)}
         if got != want:
@@ -741,12 +526,12 @@ def model_families(torch, counters, by_path, smi):
     # 9a. the serving twin, the example's defaults, --full
     for arch in sorted(ARCHS):
         free(torch)
-        attn_zero()
+        since = LaunchCount(attn)
         out = serve_batched.run(arch, batch=8, prompt_len=48, new_tokens=16,
                                 device="cuda", full=True,
                                 layers=SERVE_LAYERS.get(arch))
         # one prefill, then new_tokens - 1 decode steps against the cache
-        launches = attn_check(f"serve {arch}", 1, 15, dataclasses.replace(
+        launches = attn_check(f"serve {arch}", since, 1, 15, dataclasses.replace(
             get_config(arch), num_layers=out["layers"]))
         by_path[f"{arch} serve"] = launches
         finite = bool(torch.isfinite(out["logits"][..., :get_config(arch).vocab_size]
@@ -787,7 +572,7 @@ def model_families(torch, counters, by_path, smi):
         fe = (fake_frontend_embeds(torch.Generator().manual_seed(4), cfg, 2).to(dev)
               if F else None)
         errs = []
-        attn_zero()
+        since = LaunchCount(attn)
         with torch.no_grad():
             full, _ = forward(params, toks, cfg, frontend_embeds=fe)
             _, cache = prefill(params, toks[:, :T], cfg, frontend_embeds=fe,
@@ -800,7 +585,7 @@ def model_families(torch, counters, by_path, smi):
                     raise AssertionError(f"cache {arch}: decode step {s} differs "
                                          f"from forward by {errs[-1]}")
         # the forward and the prefill; the decode steps
-        launches = attn_check(f"cache {arch}", 2, CACHE_STEPS, cfg)
+        launches = attn_check(f"cache {arch}", since, 2, CACHE_STEPS, cfg)
         by_path[f"{arch} decode == forward"] = launches
         peak = torch.cuda.max_memory_allocated()
         emit({"phase": "families_cache", "arch": arch, "layers": layers,
@@ -838,7 +623,7 @@ def model_families(torch, counters, by_path, smi):
 
     # 9c. HFL training on the new families through train.run
     want_launches = (N_CLUSTERS + 1) * (STEPS // PERIOD)
-    impl_kernels = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
+    counted = {**sync_kernels(), **attn, "sgdm": SK.sgdm_update}
     real_get_config, real_init = train.get_config, train.init_model
     for arch, extra, impl in FAMILY_TRAIN:
         argv = (MAIN_ARGV[1:] + ["--arch", arch, "--omega-impl", impl] + extra)
@@ -848,8 +633,7 @@ def model_families(torch, counters, by_path, smi):
             q[:] = [sum(P[0].numel() for P in tree_leaves(st.params))]
             n_leaves[:] = [len(tree_leaves(st.params)),
                            sum(1 for P in tree_leaves(st.params) if P[0].numel())]
-            identical.append(all(torch.equal(P[0], P[n]) for P in tree_leaves(st.params)
-                                 for n in range(1, P.shape[0])))
+            identical.append(rows_identical(torch, st))
 
         f32 = arch == "deepseek-v2-236b"
         if f32:  # held against the CPU at the f32 tolerance, from one init
@@ -862,13 +646,11 @@ def model_families(torch, counters, by_path, smi):
         try:
             free(torch)
             torch.cuda.reset_peak_memory_stats()
-            for fn in (*counters.values(), *attn.values(), SK.sgdm_update):
-                fn.launches = 0
+            since = LaunchCount(counted)
             with use_registry(MetricsRegistry()) as reg:
                 out = train.run(train.parse_args(argv), on_sync=on_sync)
                 torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in
-                        {**counters, **attn, "sgdm": SK.sgdm_update}.items()}
+            launches = since.read()
             sgdm = reg.counter("optim.sgdm_leaves")
             sgdm_leaves = {"kernel": sgdm.value(route="kernel"),
                            "plain": sgdm.value(route="plain")}
@@ -883,7 +665,6 @@ def model_families(torch, counters, by_path, smi):
         line = {"phase": "families_train", "arch": arch, "argv": argv,
                 "impl": impl, "Q": q[0], "losses": out["hist"],
                 "eval_loss": out["eval_loss"],
-                "steady_s_per_step": out["timing"]["steady_s_per_step"],
                 "first_step_s": out["timing"]["compile_s"],
                 "sync_ms": [1e3 * t for t in out["sync_s"]],
                 "max_memory_allocated_gb": peak / 1e9, "launches": launches,
@@ -893,7 +674,7 @@ def model_families(torch, counters, by_path, smi):
             line.update(dtype="float32", cpu_losses=cpu["hist"],
                         cpu_eval_loss=cpu["eval_loss"])
         emit(line)
-        for name in impl_kernels[impl]:
+        for name in IMPL_KERNELS[impl]:
             if launches[name] != want_launches:
                 raise AssertionError(f"train {arch}: {name} launched "
                                      f"{launches[name]} times, want {want_launches}")
@@ -965,8 +746,6 @@ def seeded_flat_shard(torch, spec, shard, N, device):
     """The FlatShard of piece ``shard`` (None: the whole padded vector) of
     a seeded sync state: params 0.02·randn per cluster (each entry rounded
     to its leaf's dtype), w_ref 0.02·randn, eps and e 0.001·randn."""
-    from repro_torch.core import hfl as H
-
     sl = slice(0, spec.padded_total) if shard is None else spec.shard_slice(shard)
     vec = lambda seed, sc: seeded_vector(torch, seed, sl.start, sl.stop,
                                          spec.total, device, sc)
@@ -991,9 +770,6 @@ def state_fingerprints(torch, state, spec):
     """Per-row fingerprints of an HFLState's params (as f32) and eps, and
     of w_ref and e, over the model's Q entries (padding excluded); the
     buffers are the flat ones behind the trees (``spec``'s layout)."""
-    from repro_torch.utils import flatten as fl
-    from repro_torch.utils.tree import tree_leaves
-
     Q, N = spec.total, tree_leaves(state.params)[0].shape[0]
     w, e = fl.backing(state.w_ref, spec), fl.backing(state.e, spec)
     eps = fl.backing(state.eps, spec, rows=N)
@@ -1006,16 +782,12 @@ def state_fingerprints(torch, state, spec):
 
 def sharded_hfl(impl="fused", layout="flat", shards=1):
     """The main path's HFL configuration (2 clusters x 2 MUs, H = 2)."""
-    from repro_torch.configs import HFLConfig, parse_tiers_spec
-
     return HFLConfig(tiers=parse_tiers_spec(f"{N_CLUSTERS}x2:H={PERIOD}"),
                      sync_mode="sparse", omega_impl=impl, sync_layout=layout,
                      flat_shards=shards)
 
 
 def olmo_config(layers=None, reduced=False):
-    from repro_torch.configs import get_config
-
     cfg = get_config("olmo-1b")
     cfg = cfg.reduced() if reduced else cfg
     return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
@@ -1023,9 +795,6 @@ def olmo_config(layers=None, reduced=False):
 
 def olmo_flat_spec(torch, shards, reduced=False):
     """olmo-1b's padded flat layout (shapes only) in ``shards`` pieces."""
-    from repro_torch.models.transformer import init_model
-    from repro_torch.utils import flatten as fl
-
     return fl.spec_of(init_model(None, olmo_config(reduced=reduced), device="meta"),
                       shards=shards)
 
@@ -1036,10 +805,6 @@ def rank_sharded(rank, world, device="cuda", reduced=False):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core import hfl as H
-    from repro_torch.kernels.fused_sync import kernel as FK
-    from repro_torch.kernels.fused_sync import ops as fops
-    from repro_torch.launch import mesh as M
 
     mesh = M.make_host_mesh(data=2, model=2)
     spec = olmo_flat_spec(torch, SHARDS, reduced)
@@ -1049,14 +814,15 @@ def rank_sharded(rank, world, device="cuda", reduced=False):
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    FK.block_select.launches, second0 = 0, fops.shard_select_candidates.second_launches
+    since = LaunchCount({"block_select": FK.block_select})
+    second0 = fops.shard_select_candidates.second_launches
     t0 = time.perf_counter()
     fs = sync(fs)
     if device == "cuda":
         torch.cuda.synchronize()
     return {"coord": M.mesh_coord(mesh), "shard": sh, "backend": dist.get_backend(),
             "sync_s": time.perf_counter() - t0,
-            "block_select_launches": FK.block_select.launches,
+            "block_select_launches": since.read()["block_select"],
             "second_launches": fops.shard_select_candidates.second_launches - second0,
             "certificates": sync.certificates, "fingerprints": shard_fingerprints(torch, fs),
             "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
@@ -1068,10 +834,7 @@ def pod_rank_state(torch, cfg, coord, shape, device, seed):
     (no rank holds a whole cluster): params = init + 0.01·randn for the
     rank's cluster, w_ref = init, eps = e = 0 (the reference test's first
     sync); -> (rank HFLState, pspecs)."""
-    from repro_torch.core.hfl import HFLState
     from repro_torch.launch.sharding import P, param_specs, rank_block
-    from repro_torch.models.transformer import init_model
-    from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
     params = init_model(torch.Generator(device=device).manual_seed(seed), cfg,
                         device=device)
@@ -1097,9 +860,6 @@ def pod_invariants(torch, mesh, before, after):
     buffers: consensus (the pod peers' params equal), adoption (params =
     w_ref cast to their dtype) and conservation (applied + buffered = the
     mean drift, rtol 1e-4 / atol 1e-5); -> {name: bool}."""
-    from repro_torch.launch import mesh as M
-    from repro_torch.utils.tree import tree_leaves
-
     ok = {"consensus": True, "adoption": True, "conservation": True}
     for P0, W0, P1, W1, E1, e1 in zip(*(tree_leaves(t) for t in (
             before.params, before.w_ref, after.params, after.w_ref, after.eps,
@@ -1123,16 +883,11 @@ def rank_pod(rank, world, device="cuda", layers=POD_LAYERS, reduced=False):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs.base import ModelConfig
-    from repro_torch.core import hfl as H
-    from repro_torch.kernels.dgc import kernel as DK
-    from repro_torch.kernels.fused_sync import kernel as FK
-    from repro_torch.launch import mesh as M
-    from repro_torch.utils.tree import tree_leaves, tree_map
 
     mesh = M.make_host_mesh(pods=2, data=2, model=2)
     shape, coord = M.mesh_shape(mesh), M.mesh_coord(mesh)
-    counters = (DK.update_max, DK.tail_hist, DK.apply_mask, FK.block_select)
+    counters = {fn.__name__: fn for fn in (DK.update_max, DK.tail_hist, DK.apply_mask,
+                                           FK.block_select)}
     cfg = olmo_config(layers, reduced)
     narrow_cfg = ModelConfig(name="t", arch_type="dense", num_layers=2, d_model=32,
                              num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=64,
@@ -1148,8 +903,7 @@ def rank_pod(rank, world, device="cuda", layers=POD_LAYERS, reduced=False):
         if device == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        for fn in counters:
-            fn.launches = 0
+        since = LaunchCount(counters)
         t0 = time.perf_counter()
         state = sync(state)
         if device == "cuda":
@@ -1157,7 +911,7 @@ def rank_pod(rank, world, device="cuda", layers=POD_LAYERS, reduced=False):
         secs = time.perf_counter() - t0
         out["runs"][f"{layout} {impl}"] = {
             "sync_s": secs, "Q_local": sum(x.numel() for x in tree_leaves(state.w_ref)),
-            "launches": {fn.__name__: fn.launches for fn in counters},
+            "launches": since.read(),
             "invariants": pod_invariants(torch, mesh, before, state),
             "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
                                         if device == "cuda" else None)}
@@ -1183,29 +937,33 @@ def rank_pod(rank, world, device="cuda", layers=POD_LAYERS, reduced=False):
     return out
 
 
-def sharded_paths(torch, counters, by_path, smi):
-    """Phase 10 (the sharded flat vector and the mesh syncs): 10a the train
-    CLI with ``--flat-shards 4`` at full olmo-1b width and depth, its second
-    sync rerun with the plain compaction on the card and, where every
-    certificate held, with the unsharded fused sync; 10b four gloo ranks on
-    the card, (data, model) = (2, 2), olmo-1b's full Q, against 10a's
-    emulation on the same seeded vectors; 10c eight gloo ranks, (pod, data,
-    model) = (2, 2, 2), the pod flat layout (``pallas``) and the leaf
-    layout (``topk``) at full width and ``POD_LAYERS`` layers, and both at
-    the tests' narrow size card = CPU. Adds each path's launches to
-    ``by_path``."""
-    from repro_torch.core import hfl as H
-    from repro_torch.kernels.fused_sync import kernel as FK
-    from repro_torch.kernels.fused_sync import ops as fops
-    from repro_torch.launch import mesh as M
-    from repro_torch.launch import train
-    from repro_torch.utils import flatten as fl
-    from repro_torch.utils.tree import tree_leaves, tree_map
-
+def sharded_paths(torch, card):
+    """Phase 10, the sharded flat vector and the mesh syncs. (a) The main
+    path's run with ``--flat-shards 4`` (full olmo-1b width and depth,
+    ``fused`` Ω): S·(N + 1) = 12 ``block_select`` launches per sync plus the
+    second launches it prints, the attention launches the path implies, the
+    rows identical after each sync, each hop's exactness certificate
+    printed; the last sync's input copied to the host (the copy's seconds
+    are taken off its sync ms) and that sync run again with the plain
+    compaction on the card, every output row equal bit for bit (64-bit
+    position-weighted fingerprints of the bit patterns), and, where every
+    certificate held, equal to the unsharded fused sync's. (b) 4 rank
+    processes on the card, gloo, (data, model) = (2, 2), each building only
+    its piece of a seeded state at olmo-1b's full Q (``seeded_flat_shard``):
+    each piece's outputs equal the single-process emulation's on the same
+    vectors, ``block_select`` 3 times per rank (+ second launches). (c) 8
+    rank processes, gloo, (pod, data, model) = (2, 2, 2), the pod flat
+    layout with ``pallas`` Ω and the leaf layout with ``topk`` on each
+    rank's blocks of olmo-1b at full width and ``POD_LAYERS`` layers:
+    consensus, conservation and adoption, 2 ``update_max`` and 2
+    ``tail_hist`` launches per rank on the flat layout, and both layouts at
+    the tests' narrow size card = CPU bit for bit; the ranks' logs land in
+    ``build/chip_smoke_ranks/``. NCCL across cards waits for a machine with
+    four cards. Adds each path's launches to ``card.by_path``."""
     dev = torch.device("cuda")
     t10 = time.perf_counter()
     limit = PEAK_LIMIT_GB * 1e9
-    N = N_CLUSTERS
+    N, counters, by_path = N_CLUSTERS, sync_kernels(), card.by_path
 
     # 10a. the train CLI with --flat-shards 4 at full olmo-1b width and depth
     grab = {"post": [], "certs": []}
@@ -1238,16 +996,12 @@ def sharded_paths(torch, counters, by_path, smi):
         spec = fl.spec_of(state.w_ref, shards=SHARDS)
         grab["certs"].append(grab["sync"].certificates)
         grab["post"].append(state_fingerprints(torch, state, spec))
-        grab.setdefault("identical", []).append(all(
-            torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
-            for n in range(1, P.shape[0])))
+        grab.setdefault("identical", []).append(rows_identical(torch, state))
         grab["check_s"] = grab.get("check_s", 0.0) + time.perf_counter() - t0
 
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    counted = {**counters, **attn_kernels()}
-    for fn in counted.values():
-        fn.launches = 0
+    since = LaunchCount({**counters, **attn_kernels()})
     second0 = fops.shard_select_candidates.second_launches
     train.make_sync = capturing_make_sync
     argv = MAIN_ARGV + ["--omega-impl", "fused", "--flat-shards", str(SHARDS)]
@@ -1256,28 +1010,24 @@ def sharded_paths(torch, counters, by_path, smi):
     finally:
         train.make_sync = real_make_sync
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = since.read()
     peak = torch.cuda.max_memory_allocated()
     second = fops.shard_select_candidates.second_launches - second0
     syncs = STEPS // PERIOD
     want = SHARDS * (N + 1) * syncs + second
     by_path[f"olmo-1b fused flat_shards={SHARDS}"] = launches
-    # the host copy and the fingerprints are the checks': the copy is taken
-    # off the last sync's ms and, with the fingerprints' seconds, spread
-    # over the steps after the first, off the steady s/step
+    # the host copy is the check's: it is taken off the last sync's ms
     sync_ms = [1e3 * s for s in out["sync_s"]]
     sync_ms[-1] -= 1e3 * grab["capture_s"]
-    steady = (out["timing"]["steady_s_per_step"]
-              - (grab["capture_s"] + grab["check_s"]) / (STEPS - 1))
     emit({"phase": "sharded_one_process", "arch": "olmo-1b", "shards": SHARDS,
           "tiers": MAIN_ARGV[2], "steps": STEPS, "losses": out["hist"],
-          "eval_loss": out["eval_loss"], "steady_s_per_step": steady,
-          "first_step_s": out["timing"]["compile_s"], "sync_ms": sync_ms,
+          "eval_loss": out["eval_loss"], "first_step_s": out["timing"]["compile_s"],
+          "sync_ms": sync_ms,
           "host_copy_s": grab["capture_s"], "fingerprint_s": grab["check_s"],
           "max_memory_allocated_gb": peak / 1e9,
           "launches": launches, "second_block_select_launches": second,
           "certificates": grab["certs"], "rows_identical_after_sync": grab["identical"],
-          "card": smi})
+          "card": card.smi})
     if launches["block_select"] != want:
         raise AssertionError(f"sharded: block_select launched "
                              f"{launches['block_select']} times, want {want}")
@@ -1313,13 +1063,13 @@ def sharded_paths(torch, counters, by_path, smi):
     fops._compact_kernel_prefix = lambda S, th, cap: (
         *fops._compact_plain(S, th, cap)[:3], 0)
     try:
-        FK.block_select.launches = 0
+        since = LaunchCount({"block_select": FK.block_select})
         state, spec = restore(grab["pre"], SHARDS)
         sync = H.make_sync(H.SyncPlan(sharded_hfl(shards=SHARDS)))
         state = sync(state)
         torch.cuda.synchronize()
         plain_equal = state_fingerprints(torch, state, spec) == grab["post"][-1]
-        plain_launches = FK.block_select.launches
+        plain_launches = since.read()["block_select"]
     finally:
         fops._compact_kernel_prefix = real_compact
     del state
@@ -1465,8 +1215,6 @@ class _Sha256Sink:
     """A binary file object that only hashes what is written to it."""
 
     def __init__(self):
-        import hashlib
-
         self.h = hashlib.sha256()
 
     def write(self, b):
@@ -1475,8 +1223,6 @@ class _Sha256Sink:
 
 
 def file_sha256(path):
-    import hashlib
-
     h = hashlib.sha256()
     with open(path, "rb") as f:
         while chunk := f.read(1 << 26):
@@ -1488,11 +1234,6 @@ def compare_file_with_cpu_encoder(path, saved):
     """The file's sha256 (in a thread: hashlib lets go of the GIL) against
     the CPU encoder's on a host copy of the saved state; raises when they
     differ -> the record of the comparison."""
-    import threading
-
-    from repro_torch.checkpoint import msgpack_ckpt as ck
-    from repro_torch.utils.tree import tree_map
-
     hashed = {}
     t0 = time.perf_counter()
     hasher = threading.Thread(target=lambda: hashed.update(
@@ -1531,8 +1272,6 @@ class HostRss:
     the earlier phases' host copies)."""
 
     def __enter__(self):
-        import threading
-
         self.start = self.peak = _rss_bytes()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._poll, daemon=True)
@@ -1553,38 +1292,28 @@ class HostRss:
         return {"start_gb": self.start / 1e9, "peak_gb": self.peak / 1e9}
 
 
-def checkpoint_and_dryrun(torch, counters, by_path, smi):
-    """Phase 12. (a) the train CLI with ``--ckpt-dir`` at full olmo-1b width
-    and ``CKPT_LAYERS`` layers, ``fused``, ``pallas`` and ``fused
-    --flat-shards 4``: the file restored into a fresh card state (every
-    leaf bit for bit, the flat buffers still the sync's), one more period
-    from the saved and from the restored state (equal fingerprints; the
-    kernels' launches counted), and on the ``--flat-shards 4`` run the
-    file's sha256 equal to the CPU encoder's on a host copy of the state;
-    write / read seconds, GB/s, the
-    free disk and the host's peak RSS. (b) ``dryrun_pair`` of olmo-1b x
-    train_4k on both production meshes, on ``meta``; the dry-run's
-    argument bytes of 12a's state on a one-rank mesh against the growth of
-    ``torch.cuda.memory_allocated`` across ``hfl_init`` on the card."""
-    import shutil
-
-    from repro_torch.checkpoint import msgpack_ckpt as ck
-    from repro_torch.configs import get_shape
-    from repro_torch.core import hfl as H
-    from repro_torch.kernels.fused_sync import ops as fops
-    from repro_torch.launch import dryrun as D
-    from repro_torch.launch import mesh as M
-    from repro_torch.launch import steps as st
-    from repro_torch.launch import train
-    from repro_torch.models.transformer import init_model
-    from repro_torch.optim import SGDM
-    from repro_torch.utils import flatten as fl
-    from repro_torch.utils.tree import jax_leaves, tree_leaves
-
+def checkpoint_and_dryrun(torch, card):
+    """Phase 12. (b) The dry-run of olmo-1b x train_4k on both production
+    meshes (``dryrun_pair``: ``meta`` tensors over a fake process group,
+    nothing allocated), and its argument bytes of (a)'s state on a one-rank
+    mesh against the growth of ``torch.cuda.memory_allocated`` across
+    ``hfl_init`` on the card, within 512 B a leaf. (a) The train CLI with
+    ``--ckpt-dir`` at full olmo-1b width and ``CKPT_LAYERS`` layers,
+    ``2x2:H=2``, 4 steps, with ``fused``, ``pallas`` and ``fused
+    --flat-shards 4``: the file (~5.6 GB) restored into a fresh card state
+    (every leaf bit for bit, written in place into the flat buffers the
+    sync finds), on the ``--flat-shards 4`` run its sha256 equal to the CPU
+    encoder's on a host copy of the saved state, and one more period (2
+    steps and a sync) from the saved and from the restored state with equal
+    fingerprints and the impl's launches (``block_select``, or
+    ``update_max`` and ``tail_hist``; the train CLI run's attention launches
+    too); it prints the file's GB, write and read seconds and GB/s, the free
+    disk (it fails when the file cannot fit) and the host's resident set
+    during the write, the read and the CPU encoding."""
     dev = torch.device("cuda")
     t12 = time.perf_counter()
     cfg = olmo_config(layers=CKPT_LAYERS)
-    N = N_CLUSTERS
+    N, counters, by_path = N_CLUSTERS, sync_kernels(), card.by_path
 
     # 12b first (nothing on the card): the dry-run on both production meshes
     for multi in (False, True):
@@ -1617,7 +1346,6 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
     free(torch)
 
     # 12a. checkpoints through the train CLI
-    resume_kernels = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
     for impl, shards in CKPT_RUNS:
         name = impl + (f"-shards{shards}" if shards > 1 else "")
         d = CKPT_DIR / name
@@ -1643,9 +1371,7 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
 
         free(torch)
         torch.cuda.reset_peak_memory_stats()
-        counted = {**counters, **attn_kernels()}
-        for fn in counted.values():
-            fn.launches = 0
+        since = LaunchCount({**counters, **attn_kernels()})
         second0 = fops.shard_select_candidates.second_launches
         argv = MAIN_ARGV + ["--layers", str(CKPT_LAYERS), "--omega-impl", impl,
                             "--flat-shards", str(shards), "--ckpt-dir", str(d)]
@@ -1655,11 +1381,11 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
         finally:
             train.save_checkpoint = real_save
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counted.items()}
+        launches = since.read()
         second = fops.shard_select_candidates.second_launches - second0
         by_path[f"ckpt olmo-1b {CKPT_LAYERS} layers {name}"] = launches
         per_sync = {k: (shards * (N + 1) if shards > 1 else N + 1)
-                    for k in resume_kernels[impl]}
+                    for k in IMPL_KERNELS[impl]}
         for k, n in per_sync.items():
             want = n * (STEPS // PERIOD) + (second if k == "block_select" else 0)
             if launches[k] != want:
@@ -1713,8 +1439,7 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
         gen = torch.Generator(device=dev).manual_seed(7)
         batches = [{"tokens": torch.randint(0, cfg.vocab_size, (N, 8, 128), generator=gen,
                                             device=dev)} for _ in range(PERIOD)]
-        for fn in counters.values():
-            fn.launches = 0
+        since = LaunchCount(counters)
         second0 = fops.shard_select_candidates.second_launches
         prints = []
         for s0 in (saved, restored):
@@ -1724,7 +1449,7 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
             s0 = sync(s0)
             torch.cuda.synchronize()
             prints.append([fingerprint(torch, l) for l in tree_leaves(tensors_of(s0))])
-        resume = {k: fn.launches for k, fn in counters.items()}
+        resume = since.read()
         resume_second = fops.shard_select_candidates.second_launches - second0
         by_path[f"ckpt olmo-1b {CKPT_LAYERS} layers {name} resume x2"] = resume
         for k, n in per_sync.items():
@@ -1749,7 +1474,7 @@ def checkpoint_and_dryrun(torch, counters, by_path, smi):
               "restored_leaves_equal": leaves_equal, "flat_buffers_kept": backed,
               "resume_fingerprints_equal": True, "losses": out["hist"],
               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "card": smi})
+              "card": card.smi})
         del saved, out
         free(torch)
         shutil.rmtree(d)
@@ -1808,9 +1533,6 @@ def attn_kernels():
     """The attention kernels by name (their wrappers' ``launches``
     counters): the flash kernels of train and prefill, and the decode
     step's, the CUDA-core and the tensor-core kernel of each apart."""
-    from repro_torch.kernels.decode_attn import kernel as DA
-    from repro_torch.kernels.flash_attn import kernel as FA
-
     return {"flash_attn_fwd": FA.flash_attn_fwd, "flash_attn_bwd": FA.flash_attn_bwd,
             "decode_attn": DA.decode_attn, "mla_decode_attn": DA.mla_decode_attn,
             "decode_attn_tc": DA.decode_attn_tc,
@@ -1823,7 +1545,6 @@ def decode_launches_want(cfg, steps):
     dtype and widths (MLA's through ``mla_decode_attn``)."""
     import torch
 
-    from repro_torch.kernels.decode_attn import kernel as DA
 
     n = steps * attn_sites(cfg)
     dtype = getattr(torch, cfg.dtype)
@@ -1844,8 +1565,6 @@ def decode_launches_want(cfg, steps):
 def attn_sites(cfg):
     """Attention calls in one forward (or prefill) of ``cfg``: one a layer,
     the hybrid's shared-block sites, none in a pure SSM."""
-    from repro_torch.models.transformer import num_shared_attn_sites
-
     if cfg.arch_type == "ssm":
         return 0
     return num_shared_attn_sites(cfg) if cfg.arch_type == "hybrid" else cfg.num_layers
@@ -1856,8 +1575,6 @@ def attn_launches_want(sites, steps, clusters, seq):
     with ``sites`` attention calls a forward: each step runs every
     cluster's forward, its recompute and its backward; the eval forwards
     its 32 rows in chunks of ``EVAL_CHUNK_TOKENS``."""
-    from repro_torch.launch.train import EVAL_CHUNK_TOKENS
-
     chunks = -(-32 // max(1, EVAL_CHUNK_TOKENS // seq))
     return {"flash_attn_fwd": steps * clusters * 2 * sites + chunks * sites,
             "flash_attn_bwd": steps * clusters * sites, "decode_attn": 0,
@@ -1867,9 +1584,6 @@ def attn_launches_want(sites, steps, clusters, seq):
 def train_attn_want(argv):
     """``attn_launches_want`` for ``train.run(train.parse_args(argv))``
     (``N_CLUSTERS`` clusters), the model resolved as the CLI does."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch import train
-
     args = train.parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -1882,8 +1596,6 @@ def train_attn_want(argv):
 
 def kept_pairs(T, S, window, q_offset):
     """(q, k) pairs the causal / window mask keeps."""
-    import numpy as np
-
     qpos = q_offset + np.arange(T)
     hi = np.minimum(qpos, S - 1)
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros_like(qpos)
@@ -2049,53 +1761,45 @@ def attn_kernel_checks(torch, FA, gen):
     return checks
 
 
-def long_context(torch, by_path, smi, kernels):
-    """Phase 13: (a) the main path at train_4k's length through
-    ``train.run`` (full olmo-1b, ``LONG_ARGV``), with the attention kernels'
-    launches against what the path implies (remat recompute included) and
-    ``block_select``'s as in phase 4, then one cluster's loss forward and
-    backward at that shape with ``remat`` off and on; (b) the serving twin
-    at prefill_32k's length for ``PREFILL_ARCHS`` and decode == forward in
-    f32 at 2 layers (``LONG_CACHE_RUNS``); (c) the attention kernels against
-    their plain versions at ``ATTN_SHAPES`` in f32 and bf16, with the
-    controls that must fail (``attn_kernel_checks``), and both timed
-    at olmo's train_4k and prefill_32k shapes beside their bounds and SDPA
-    on f32 copies. Adds each run's launches to ``by_path`` and each timing
-    to ``kernels``."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attn import kernel as FA
-    from repro_torch.kernels.fused_sync import kernel as FK
-    from repro_torch.launch import serve_batched, train
-    from repro_torch.launch.steps import make_loss_fn
-    from repro_torch.models.transformer import decode_step, forward, init_model, prefill
-    from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
-
+def long_context(torch, card):
+    """Phase 13, long context. (a) The main path at train_4k's length
+    through ``train.run`` (full olmo-1b, ``LONG_ARGV``: ``--seq 4096
+    --batch-per-mu 1``, fused, 4 steps): sync ms, peak, the attention
+    kernels' launches against what the path implies (remat's recompute and
+    the eval's 8,192-token chunks included) and ``block_select``'s as in
+    phase 4; then one cluster's loss forward and backward at [2, 4096] with
+    ``remat`` off and on (the same loss, the gradients held bit for bit,
+    both peaks). (b) The serving twin at prefill_32k's length, batch 2, 8
+    new tokens, for ``PREFILL_ARCHS`` (danube3-4b's window 4096: the ring
+    cache wraps): prefill s, decode ms/step, peak, one forward launch a
+    layer and one decode launch a layer a decode step; decode == forward in
+    f32 at 2 layers and lengths the reference takes (``LONG_CACHE_RUNS``)
+    at 2e-3. (c) ``flash_attn_fwd``/``_bwd`` against their plain versions at
+    ``ATTN_SHAPES`` in f32 and bf16 with the controls that must fail
+    (``attn_kernel_checks``); then both kernels timed at olmo's train_4k and
+    prefill_32k shapes beside their bounds (every product at the bf16
+    tensor-core rate, those with the f32 P or dS three times), SDPA
+    (efficient backend) on f32 copies, and SDPA's flash backend on the bf16
+    inputs (it rounds P to bf16: not the same function). Adds each run's
+    launches to ``card.by_path`` and each timing to ``card.kernels``."""
     dev = torch.device("cuda")
     t13 = time.perf_counter()
     limit = PEAK_LIMIT_GB * 1e9
     counted = dict(attn_kernels(), block_select=FK.block_select)
-
-    def zero():
-        for fn in counted.values():
-            fn.launches = 0
-
-    def read():
-        torch.cuda.synchronize()
-        return {k: fn.launches for k, fn in counted.items()}
+    by_path, smi, kernels = card.by_path, card.smi, card.kernels
 
     # 13a. the main path at train_4k's length
     cfg = get_config("olmo-1b")
     identical = []
 
     def on_sync(i, state, seconds):
-        identical.append(all(torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
-                             for n in range(1, P.shape[0])))
+        identical.append(rows_identical(torch, state))
 
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    zero()
+    since = LaunchCount(counted)
     out = train.run(train.parse_args(LONG_ARGV), on_sync=on_sync)
-    launches = read()
+    launches = since.read()
     peak = torch.cuda.max_memory_allocated()
     syncs = LONG_STEPS // PERIOD
     want = train_attn_want(LONG_ARGV)
@@ -2103,7 +1807,6 @@ def long_context(torch, by_path, smi, kernels):
     emit({"phase": "long_train", "arch": cfg.name, "layers": cfg.num_layers,
           "seq": LONG_SEQ, "argv": LONG_ARGV, "losses": out["hist"],
           "eval_loss": out["eval_loss"],
-          "steady_s_per_step": out["timing"]["steady_s_per_step"],
           "first_step_s": out["timing"]["compile_s"],
           "sync_ms": [1e3 * s for s in out["sync_s"]],
           "max_memory_allocated_gb": peak / 1e9, "launches": launches,
@@ -2132,11 +1835,12 @@ def long_context(torch, by_path, smi, kernels):
         free(torch)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        zero()
+        since = LaunchCount(counted)
         t0 = time.perf_counter()
         loss, _ = make_loss_fn(c)(tree_unflatten(treedef, req), {"tokens": toks})
         grads = torch.autograd.grad(loss, req, allow_unused=True)
-        launches = read()
+        torch.cuda.synchronize()
+        launches = since.read()
         sec = time.perf_counter() - t0
         remat_runs[remat] = dict(
             loss=float(loss.detach()), seconds=sec, launches=launches,
@@ -2169,10 +1873,10 @@ def long_context(torch, by_path, smi, kernels):
     # 13b. prefill at prefill_32k's length, then decode
     for arch in PREFILL_ARCHS:
         free(torch)
-        zero()
+        since = LaunchCount(counted)
         out = serve_batched.run(arch, batch=PREFILL_BATCH, prompt_len=PREFILL_LEN,
                                 new_tokens=PREFILL_NEW, device="cuda", full=True)
-        launches = read()
+        launches = since.read()
         acfg = get_config(arch)
         finite = bool(torch.isfinite(out["logits"][..., :acfg.vocab_size].float()).all())
         emit({"phase": "long_prefill", "arch": arch, "layers": out["layers"],
@@ -2206,9 +1910,9 @@ def long_context(torch, by_path, smi, kernels):
         with torch.no_grad():
             full, _ = forward(params, toks, c)
             _, cache = prefill(params, toks[:, :T], c, max_len=T + 1)
-            zero()
+            since = LaunchCount(counted)
             dl, cache = decode_step(params, cache, toks[:, T:], c)
-            launches = read()
+            launches = since.read()
         got, want_l = dl[:, 0, :V], full[:, T, :V]
         err = float((got - want_l).abs().max())
         ok = bool(torch.allclose(got, want_l, rtol=CACHE_TOL, atol=CACHE_TOL))
@@ -2386,8 +2090,6 @@ def seeded_cache(torch, cfg, B, seq_len, context, gen, device):
     leaves: every float entry a standard normal draw from ``gen``, each slot
     holding its position (a sliding-window ring the last positions at pos
     mod S; slots past the context empty), ``pos`` = context."""
-    from repro_torch.models.transformer import init_cache
-
     cache = init_cache(cfg, B, seq_len, device=device)
     for t in cache.values():
         if t.is_floating_point():
@@ -2456,8 +2158,6 @@ def rounded_w_decode(torch, kname, ops, kw):
     p . v (MLA: w . ckv), in the queries' type: the function of a kernel that
     kept only the split's hi part. A control that 14c's bf16 check must
     refuse."""
-    from repro_torch.kernels.decode_attn.ref import NEG_INF, valid_slots
-
     if kname == "decode_attn":
         q, k, v, sp, qp = ops
         B, _, H, D = q.shape
@@ -2546,7 +2246,6 @@ def decode_timings(torch, DA, gen, checks, kernels):
     port. Each timing lands in ``kernels`` under the kernel that ran it."""
     import torch.nn.functional as Fn
 
-    from repro_torch.kernels.decode_attn.ref import valid_slots
 
     dev = torch.device("cuda")
     for kname, name, reps in DECODE_TIMED:
@@ -2627,14 +2326,22 @@ def drift_row(torch, n, zeros, seed, device, offset=0):
     return x
 
 
-def radix_select_checks(torch, kernels, Q, k, Qf, kf, dev):
-    """Phase 2d (callable alone after ``_build.timed_build()``): the radix
-    select's kernels against their plain version and the torch route,
-    bit for bit, then timed; each size's timing goes into ``kernels``."""
-    from repro_torch.core import sparsify as sp
-    from repro_torch.kernels.radix_select import kernel as RS
-
-    flush = torch.empty(32 << 20, device=dev)  # 128 MB: evicts the 50 MB L2
+def radix_select_checks(torch, card):
+    """Phase 2d, the exact top-k's radix select (``kernels/radix_select``,
+    ``csrc/radix_select.cu``): the kernels' winners and keys, and the
+    ordered positions, bit for bit against the plain version
+    (``radix_select_plain``, ``order_winners``) at olmo's row (Q entries made
+    from a seed like a sync's bf16 drift: ``DRIFT_ZEROS`` shares of zeros,
+    the rest crowded into six exponents; starting off a 16-B boundary, as
+    the second row of an [R, Q] matrix with odd Q does), the faithful row
+    (Q = 11,173,962) and small rows (NaN, ±inf, ±0.0, subnormals; k = 1, n;
+    one entry; every offset in a 16-B chunk), all but olmo's also against
+    the CPU route of ``stable_topk_positions`` on a CPU copy; each size
+    timed beside its bound (five reads of the row, 8 B a winner), the plain
+    version's time and the device time of each kernel and the sort; each
+    size's timing goes into ``card.kernels``."""
+    Q, k, Qf, kf, flush = card.Q, card.k, card.Qf, card.kf, card.flush
+    dev = torch.device("cuda")
 
     def check(name, x, kk, cpu=True):
         pos, keys = RS.radix_select(x, kk)
@@ -2643,8 +2350,6 @@ def radix_select_checks(torch, kernels, Q, k, Qf, kf, dev):
         ppos, pkeys = RS.radix_select_plain(x, kk)
         same(torch, [pos, keys], [ppos, pkeys], f"radix_select[{name}]")
         same(torch, [top], [RS.order_winners(ppos, pkeys)], f"radix_topk[{name}]")
-        same(torch, [top], [sp._stable_topk_torch(x, kk)],
-             f"radix_topk[{name}] against the torch route")
         if cpu:  # the CPU route, which the tests hold against lax.top_k
             same(torch, [top.cpu()], [sp.stable_topk_positions(x.cpu(), kk)],
                  f"radix_topk[{name}] against the CPU route")
@@ -2661,14 +2366,13 @@ def radix_select_checks(torch, kernels, Q, k, Qf, kf, dev):
             ms = cuda_ms_cold(torch, fn, 10, flush)
         else:
             ms = cuda_ms(torch, fn, 3)
-        torch_ms = cuda_ms(torch, lambda: sp._stable_topk_torch(x, kk), 1)
         plain_ms = cuda_ms(torch, lambda: RS.radix_topk_plain(x, kk), 1)
         split = kernel_split(torch, fn, 3, names=RADIX_KERNELS)  # warm
         n = x.numel()
         b, by = bound_ms(5 * 4 * n + 8 * kk)
-        kernels.setdefault("radix_select", {})[shape] = entry = dict(
+        card.kernels.setdefault("radix_select", {})[shape] = entry = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
-            torch_route_ms=torch_ms, max_abs_err=0.0, elements=n, k=kk,
+            max_abs_err=0.0, elements=n, k=kk,
             cold_l2=cold, hist_passes_ms=split["radix_hist_kernel"],
             hist_bound_ms=bound_ms(3 * 4 * n)[0],
             count_ms=split["tile_count_kernel"], scan_ms=split["tile_scan_kernel"],
@@ -2736,7 +2440,6 @@ def sgdm_configs():
     16 held experts, a vocabulary of 12,800; and mamba2-780m at full width
     and depth, whose f32 leaves (A_log, D, dt_bias, the norms) take the
     kernel's f32 body at thousands of entries a leaf."""
-    from repro_torch.configs import get_config
     return (get_config("olmo-1b"),
             dataclasses.replace(get_config("deepseek-v2-lite"), num_layers=7,
                                 experts_held=16, vocab_size=12800),
@@ -2748,8 +2451,8 @@ def bits_equal(torch, a, b):
     return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
-def sgdm_checks(torch, kernels, dev):
-    """Phase 2e (callable alone after ``_build.timed_build()``): SGDM's step
+def sgdm_checks(torch, card):
+    """Phase 2e, SGDM's update (``kernels/sgdm``, ``csrc/sgdm.cu``): a step
     (both clusters' rows of a [2, ...] state, every leaf of the model) on the
     kernel route against the plain route (``kernels.sgdm.sgdm_plain``, the
     torch ops) on copies of the state, bit for bit in params and moments, at
@@ -2758,16 +2461,7 @@ def sgdm_checks(torch, kernels, dev):
     both routes (weight decay 1e-4, the train CLI's) against its bound, 14 B
     an entry of a bf16 param and 20 of an f32 one. Last, the train CLI's
     runs of ``SGDM_TRAIN_ARGV``: every leaf on the kernel."""
-    import numpy as np
-
-    from repro_torch.kernels.sgdm import kernel as SK
-    from repro_torch.launch import train
-    from repro_torch.models.transformer import init_model
-    from repro_torch.obs import MetricsRegistry, use_registry
-    from repro_torch.optim import SGDM
-    from repro_torch.utils.tree import tree_leaves
-
-    N = 2
+    N, dev = 2, torch.device("cuda")
     tree = lambda xs: {f"l{i:03d}": x for i, x in enumerate(xs)}
     for cfg in sgdm_configs():
         shapes = [(tuple(x.shape), x.dtype)
@@ -2783,7 +2477,7 @@ def sgdm_checks(torch, kernels, dev):
         for wd, nesterov in SGDM_CASES:
             Pp, Mp = [p.clone() for p in P], [m.clone() for m in M]
             opt = SGDM(momentum=0.9, weight_decay=wd, nesterov=nesterov)
-            launches = SK.sgdm_update.launches
+            since = LaunchCount({"sgdm": SK.sgdm_update})
             with use_registry(MetricsRegistry()) as reg:
                 for step in range(SGDM_STEPS):
                     lr = float(np.float32(0.1 / (step + 1)))
@@ -2800,7 +2494,7 @@ def sgdm_checks(torch, kernels, dev):
                                          f"leaf {i % len(P)} differs from the plain route")
             leaves = reg.counter("optim.sgdm_leaves")
             counted = (leaves.value(route="kernel"), leaves.value(route="plain"))
-            launched = SK.sgdm_update.launches - launches
+            launched = since.read()["sgdm"]
             if (*counted, launched) != (len(shapes) * N * SGDM_STEPS, 0,
                                         sent * N * SGDM_STEPS):
                 raise AssertionError(f"sgdm[{cfg.name}]: leaves by route {leaves.series}, "
@@ -2832,7 +2526,7 @@ def sgdm_checks(torch, kernels, dev):
         nbytes = N * sum(math.prod(s) * (3 * torch.empty((), dtype=dt).element_size() + 8)
                          for s, dt in shapes)
         b, by = bound_ms(nbytes)
-        kernels.setdefault("sgdm", {})[cfg.name] = entry = dict(
+        card.kernels.setdefault("sgdm", {})[cfg.name] = entry = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
             max_abs_err=0.0, elements=N * Q, bytes=nbytes, share_of_bound=b / ms,
             launches_a_step=N * sent)
@@ -2842,7 +2536,7 @@ def sgdm_checks(torch, kernels, dev):
 
     # the train CLI's step at full width: every leaf's update on the kernel
     for arch in ("olmo-1b", "deepseek-v2-lite"):
-        launches = SK.sgdm_update.launches
+        since = LaunchCount({"sgdm": SK.sgdm_update})
         with use_registry(MetricsRegistry()) as reg:
             out = train.run(train.parse_args(SGDM_TRAIN_ARGV + ["--arch", arch]))
             torch.cuda.synchronize()
@@ -2853,38 +2547,32 @@ def sgdm_checks(torch, kernels, dev):
                                  f"losses {out['hist']}")
         emit({"check": "sgdm_train", "arch": arch, "argv": SGDM_TRAIN_ARGV,
               "leaves_by_route": {"kernel": counted[0], "plain": counted[1]},
-              "launches": SK.sgdm_update.launches - launches, "losses": out["hist"]})
+              "launches": since.read()["sgdm"], "losses": out["hist"]})
         del out
         free(torch)
 
 
-def long_decode(torch, by_path, smi, kernels):
-    """Phase 14: (a) decode_32k through ``launch.steps.build_decode_step`` at
-    full width (``DECODE_RUNS``): decode ms/step (first step excluded), the
-    peak, the decode kernels' launches against attention sites x steps; (b)
-    long_500k for ``LONG_ARCHS`` at full depth, batch 1, then card = CPU in
-    f32 at 2e-3 (``LONG_CPU_RUNS``); (c) the decode kernels against their
-    plain versions (``decode_kernel_checks``) and timed at the two headline
-    shapes (``decode_timings``). Adds each run's launches to ``by_path`` and
-    each timing to ``kernels``."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attn import kernel as DA
-    from repro_torch.launch.steps import build_decode_step
-    from repro_torch.models.transformer import decode_step, init_model
-    from repro_torch.utils.tree import tree_map
-
+def long_decode(torch, card):
+    """Phase 14, decode at the long shapes, each run from a seeded cache in
+    the state a context of the shape's length less 8 tokens leaves
+    (``seeded_cache``: nothing prefills, as in the reference's dry-run),
+    then 8 greedy steps through ``launch.steps.build_decode_step`` at full
+    width. (a) decode_32k (``DECODE_RUNS``; danube3-4b's 4,096-slot ring
+    wraps eight times); (b) long_500k, batch 1, full depth, for
+    ``LONG_ARCHS``, then card = CPU in f32 decoding 4 tokens from one seeded
+    state (``LONG_CPU_RUNS``): logits at 2e-3, pos and slot_pos equal, the
+    written slots at 2e-3. Each run prints decode ms/step (first
+    step excluded), the cache's GB, the peak (under ``PEAK_LIMIT_GB``) and
+    the decode kernels' launches against attention sites x steps, on the
+    kernel the wrappers' route picks (bf16 MLA and bf16 G >= 2: the
+    tensor-core kernels, ``*_tc``). (c) The decode kernels against their
+    plain versions (``decode_kernel_checks``) and timed (``decode_timings``).
+    Adds each run's launches to ``card.by_path`` and each timing to
+    ``card.kernels``."""
     dev = torch.device("cuda")
     t14 = time.perf_counter()
     limit = PEAK_LIMIT_GB * 1e9
-    counted = attn_kernels()
-
-    def zero():
-        for fn in counted.values():
-            fn.launches = 0
-
-    def read():
-        torch.cuda.synchronize()
-        return {k: fn.launches for k, fn in counted.items()}
+    counted, by_path, smi = attn_kernels(), card.by_path, card.smi
 
     def run(shape, arch, B, layers, seq_len):
         cfg = get_config(arch)
@@ -2901,7 +2589,7 @@ def long_decode(torch, by_path, smi, kernels):
         tok = torch.randint(0, V, (B, 1), generator=gen, device=dev)
         step = build_decode_step(cfg)
         times = []
-        zero()
+        since = LaunchCount(counted)
         for _ in range(DECODE_NEW):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2909,7 +2597,7 @@ def long_decode(torch, by_path, smi, kernels):
             tok = logits[:, -1:, :V].argmax(-1)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        launches = read()
+        launches = since.read()
         peak = torch.cuda.max_memory_allocated()
         want = decode_launches_want(cfg, DECODE_NEW)
         finite = bool(torch.isfinite(logits[..., :V].float()).all())
@@ -2956,7 +2644,7 @@ def long_decode(torch, by_path, smi, kernels):
         toks = torch.randint(0, V, (LONG_CPU_STEPS, 1, 1),
                              generator=torch.Generator().manual_seed(15))
         errs = []
-        zero()
+        since = LaunchCount(counted)
         with torch.no_grad():
             for t in toks:
                 cl, cpu_c = decode_step(cpu_p, cpu_c, t, c)
@@ -2966,7 +2654,7 @@ def long_decode(torch, by_path, smi, kernels):
                 if not torch.allclose(got, want_l, rtol=CACHE_TOL, atol=CACHE_TOL):
                     raise AssertionError(f"long_500k {arch}: card and CPU logits differ "
                                          f"by {errs[-1]}")
-        launches = read()
+        launches = since.read()
         sp_equal = torch.equal(card_c["slot_pos"].cpu(), cpu_c["slot_pos"])
         pos_equal = torch.equal(card_c["pos"].cpu(), cpu_c["pos"])
         new = (cpu_c["slot_pos"][0] >= context).nonzero()[:, 0]  # the written slots
@@ -2990,64 +2678,58 @@ def long_decode(torch, by_path, smi, kernels):
     # 14c. the kernels against their plain versions, then timed
     gen = torch.Generator(device=dev).manual_seed(141)
     checks = decode_kernel_checks(torch, DA, gen)
-    decode_timings(torch, DA, gen, checks, kernels)
+    decode_timings(torch, DA, gen, checks, card.kernels)
     emit({"phase": "long_decode_done", "seconds": time.perf_counter() - t14})
 
 
-def main(argv):
-    import torch
+# ---- phase 1: the card, the build, the paths' sizes --------------------------
+@dataclasses.dataclass
+class Card:
+    """What ``setup`` (phase 1) makes and every phase reads: the card's
+    ``nvidia-smi`` line; olmo-1b's flat Q and its uplink's k at φ = 0.9;
+    full-width ResNet-18's Q and its MU uplink's k; the generator the
+    phases draw their random data from, in the order they run; a 128 MB
+    buffer whose rewrite evicts the 50 MB L2; and what the summary reads:
+    ``kernels`` (kernel -> shape -> its check's error, times and bound) and
+    ``by_path`` (path -> {kernel: launches in that path's run})."""
+    smi: str
+    Q: int
+    k: int
+    Qf: int
+    kf: int
+    gen: object
+    flush: object
+    kernels: dict = dataclasses.field(default_factory=dict)
+    by_path: dict = dataclasses.field(default_factory=dict)
 
-    profile_dir = None
-    if argv[:1] == ["--profile"] and len(argv) == 2:
-        profile_dir = Path(argv[1]).resolve()
-    elif argv:
-        print("usage: python3 chip_smoke.py [--profile DIR]", file=sys.stderr)
-        return 2
+    def rand(self, *shape):
+        import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs a CUDA card", file=sys.stderr)
-        return 2
-    try:
-        import numpy as np
+        return torch.randn(shape, generator=self.gen, device=self.gen.device)
 
-        from repro_torch.comm import accounting as acc
-        from repro_torch.comm import codecs as cod
-        from repro_torch.configs import HFLConfig, get_config, parse_tiers_spec
-        from repro_torch.configs.resnet18_cifar import CONFIG as PAPER
-        from repro_torch.core import sparsify as sp
-        from repro_torch.core import hfl as H
-        from repro_torch.core.hfl import HFLState
-        from repro_torch.data import SyntheticImages
-        from repro_torch.kernels import _build
-        from repro_torch.kernels.bitpack import kernel as BK
-        from repro_torch.kernels.bitpack import ops as bops
-        from repro_torch.kernels.dgc import kernel as DK
-        from repro_torch.kernels.dgc import ops as dops
-        from repro_torch.kernels.fused_sync import kernel as FK
-        from repro_torch.kernels.fused_sync import ops as fops
-        from repro_torch.kernels.radix_select import kernel as RS
-        from repro_torch.kernels.sgdm import kernel as SK
-        from repro_torch.launch import comm_bits
-        from repro_torch.launch import noniid_hfl
-        from repro_torch.launch import paper_accuracy as pa
-        from repro_torch.launch import train
-        from repro_torch.models.resnet import init_resnet18
-        from repro_torch.models.transformer import init_model
-        from repro_torch.obs import MetricsRegistry, SpanTracer, use_registry
-        from repro_torch.obs.spans import use_tracer
-        from repro_torch.sim import engine as E
-        from repro_torch.utils import flatten as fl
-        from repro_torch.utils.tree import tree_leaves
-    except ImportError as exc:
-        print(f"chip_smoke: the repository's src/repro_torch is missing ({exc})",
-              file=sys.stderr)
-        return 2
+
+def record(card, name, shape, ms, plain_ms, nbytes, nops, err, elements, **extra):
+    """A kernel's time at ``shape`` beside its bound: into ``card.kernels``
+    and one JSON line."""
+    b, by = bound_ms(nbytes, nops)
+    card.kernels.setdefault(name, {})[shape] = entry = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+        max_abs_err=err, elements=elements, **extra)
+    emit({"timing": name, "shape": shape, **entry})
+
+
+def setup(torch):
+    """Phase 1: print the card's name and power limit; build the CUDA kernels
+    from ``src/repro_torch/csrc`` and print the build seconds and each
+    kernel's registers, spills and shared memory (``-Xptxas -v``), each
+    attention kernel's resources (``cuobjdump -res-usage``) and the count of
+    its ``HGMMA`` and ``UTMALDG`` SASS instructions (``cuobjdump -sass``);
+    fail if a bf16 attention kernel keeps a stack frame (a spill) or lacks
+    either instruction; the paths' sizes from the port's own models at full
+    width. -> the ``Card``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-
-    # ---- 1. card and build ------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -3072,31 +2754,57 @@ def main(argv):
         raise AssertionError(f"bf16 attention kernels without HGMMA or UTMALDG: {tc}")
 
     # the main path's sizes, from the port's own model at full width
-    cfg = get_config("olmo-1b")
-    spec = fl.spec_of(init_model(None, cfg, device="meta"))  # shapes only
-    n_leaves = len(tree_leaves(init_model(None, cfg, device="meta")))
-    n_sent = sum(1 for x in tree_leaves(init_model(None, cfg, device="meta")) if x.numel())
-    Q = spec.total
-    k_ul = sp.keep_count(Q, 0.9)
-    emit({"phase": "sizes", "arch": cfg.name, "Q": Q, "k": k_ul})
+    cfg = olmo_config()
+    Q = fl.spec_of(init_model(None, cfg, device="meta")).total  # shapes only
+    k = sp.keep_count(Q, 0.9)
+    emit({"phase": "sizes", "arch": cfg.name, "Q": Q, "k": k})
     # the faithful path's sizes: full-width ResNet-18, shapes only
     Qf = fl.spec_of(init_resnet18(None, width=PAPER.width, device="meta")[0]).total
     kf = sp.keep_count(Qf, PAPER.hfl.tiers[0].phi_up)  # the MU uplink's k
     emit({"phase": "sizes", "arch": "resnet18-cifar", "width": PAPER.width,
           "Q": Qf, "k": kf})
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    kernels = {}  # kernel -> shape -> its check's error, times and bound
-    flush = torch.empty(32 << 20, device=dev)  # 128 MB: evicts the 50 MB L2
+    return Card(smi=smi, Q=Q, k=k, Qf=Qf, kf=kf,
+                gen=torch.Generator(device=dev).manual_seed(0),
+                flush=torch.empty(32 << 20, device=dev))
 
-    def timed(name, shape, ms, plain_ms, nbytes, nops, err, elements, **extra):
-        b, by = bound_ms(nbytes, nops)
-        kernels.setdefault(name, {})[shape] = entry = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
-            max_abs_err=err, elements=elements, **extra)
-        emit({"timing": name, "shape": shape, **entry})
 
-    # ---- 2. kernels vs plain versions -------------------------------------
+# ---- phases 2 and 3: the sync kernels against their plain versions ----------
+def kernel_checks(torch, card):
+    """Phase 2: hold every sync kernel against its plain PyTorch version on
+    the card, bitwise, on edge cases and at the paths' shapes (one JSON line
+    per check), and time kernel and plain version there.
+
+    ``block_select`` on the boundaries of its design (``cap_blk`` at, one
+    before and one after a warp's and a CTA's span, 1 and ``BLOCK_ELEMS``; a
+    length ending inside a span of the last tile; a tile of candidates only;
+    NaN and ±inf entries). ``tail_hist`` on elements equal to edges,
+    NaN/±inf/±0, collapsed edges, 1, 64 and 256 bins, 3 and 5 tiles and the
+    real ResNet-18 gradient, which is timed beside the gaussian with the
+    device time of its two passes (slice counts, ordered sum) from a short
+    ``torch.profiler`` capture. ``apply_mask`` is compared as bit patterns
+    (signs of zeros included), and ``omega_pallas``/``dgc_step_pallas`` on
+    the card against the same functions on CPU copies at one row of the
+    faithful path's Q; so is the fused Ω there (``sparsify.omega(
+    impl="fused")``), with ``block_select`` against its plain version at
+    that row's own tile capacity and threshold, on a real full-width
+    ResNet-18 gradient (more candidates than the buffer holds), randn**3
+    (heavy-tailed, the candidates answer) and a gaussian scaled up along the
+    row (the total fits, the last tiles overflow); the branch the kernel's
+    tile counts decide must be the one the card's selection took.
+    ``bitpack`` against its plain version (bytes and popcounts) on edge
+    cases (n = 5, a ragged two-block n, NaN/±0/±inf/subnormal entries,
+    all-zero and all-one masks), on its design's boundaries (one tile, 43
+    tiles, bits on both sides of every chunk and CTA span of three tiles)
+    and at the comm path's and olmo-1b's shapes, with the occupancy
+    calculator's clusters at once and the waves they make.
+    ``block_select``, ``update_max``, ``tail_hist`` and ``bitpack`` are
+    timed at one row of the faithful path's Q with the L2 cache flushed
+    before every launch (the row fits in the 50 MB L2), each after a flush
+    that writes and after one that reads (``bitpack`` also beside the
+    events' own floor)."""
+    dev = torch.device("cuda")
+    rand, gen, flush = card.rand, card.gen, card.flush
+    Q, Qf, kf = card.Q, card.Qf, card.kf
     BE = FK.BLOCK_ELEMS
     BE_BP = BK.BLOCK_ROWS * BK.BLOCK_COLS
     tiny = float(torch.finfo(torch.float32).tiny)
@@ -3162,8 +2870,8 @@ def main(argv):
         # each distinct input read once (the paths pass u and g as ONE zero
         # buffer), u' and v' written once, 3 flops per element
         n_in = len({t.data_ptr() for t in (u, v, g)})
-        timed("update_max", shape, ms, plain_ms,
-              4 * P * n_in + 8 * P + 4 * (rows // 256), 3 * P, err, P, **extra)
+        record(card, "update_max", shape, ms, plain_ms,
+               4 * P * n_in + 8 * P + 4 * (rows // 256), 3 * P, err, P, **extra)
 
     def check_tail_hist(v, edges, case, shape=None):
         got = DK.tail_hist(v, edges)
@@ -3183,9 +2891,9 @@ def main(argv):
         split = kernel_split(torch, fn, 10 if cold else 3, flush if cold else None)
         plain_ms = cuda_ms(torch, lambda: DK.tail_hist_plain(v, edges), 1)
         P = v.numel()
-        timed("tail_hist", shape, ms, plain_ms, 4 * P + 8 * edges.numel(), 7 * P,
-              err, P, data=case, slice_pass_ms=split["slice_hist_kernel"],
-              ordered_sum_ms=split["tile_order_sum_kernel"], **extra)
+        record(card, "tail_hist", shape, ms, plain_ms, 4 * P + 8 * edges.numel(),
+               7 * P, err, P, data=case, slice_pass_ms=split["slice_hist_kernel"],
+               ordered_sum_ms=split["tile_order_sum_kernel"], **extra)
 
     def lin_edges(v, bins):
         return sp.linear_edges(v.abs().max(), bins).clamp_min(tiny)
@@ -3251,7 +2959,7 @@ def main(argv):
     plain_ms = cuda_ms(torch, lambda: DK.apply_mask_plain(zero, v, th), 3)
     P = rows_f * 1024
     # read u (the zero buffer, a distinct operand) and v, write three outputs
-    timed("apply_mask", "resnet18", ms, plain_ms, 20 * P + 4, 3 * P, err, P)
+    record(card, "apply_mask", "resnet18", ms, plain_ms, 20 * P + 4, 3 * P, err, P)
     del u, v, zero, th
     free(torch)
 
@@ -3335,9 +3043,9 @@ def main(argv):
             plain_ms = cuda_ms(torch, lambda: FK.block_select_plain(
                 x, th, cap_blk_f, Qf), 3)
             nb_f = got[2].shape[0]
-            timed("block_select", "resnet18", ms, plain_ms,
-                  4 * Qf + 8 * nb_f * cap_blk_f + 4 * nb_f + 4, 2 * Qf, 0.0, Qf,
-                  cap_blk=cap_blk_f, no_candidates_ms=ms_none, ms_clean_l2=ms_clean)
+            record(card, "block_select", "resnet18", ms, plain_ms,
+                   4 * Qf + 8 * nb_f * cap_blk_f + 4 * nb_f + 4, 2 * Qf, 0.0, Qf,
+                   cap_blk=cap_blk_f, no_candidates_ms=ms_none, ms_clean_l2=ms_clean)
     del grad, ramp, x, th, got, sent, mask, want_sent, want_mask
     free(torch)
 
@@ -3398,14 +3106,21 @@ def main(argv):
         plain_ms = cuda_ms(torch, lambda: BK.bitpack_plain(tiles), 1)
         P = tiles.numel()
         # read the f32 mask once, write one bit per element and the counts
-        timed("bitpack", shape, ms, plain_ms, 4 * P + P // 8 + 4 * (P // BE_BP),
-              P, 0.0, P, tiles=P // BE_BP, active_clusters=bp_clusters,
-              waves=-(-(P // BE_BP) // bp_clusters), **extra)
+        record(card, "bitpack", shape, ms, plain_ms, 4 * P + P // 8 + 4 * (P // BE_BP),
+               P, 0.0, P, tiles=P // BE_BP, active_clusters=bp_clusters,
+               waves=-(-(P // BE_BP) // bp_clusters), **extra)
         del tiles
         free(torch)
 
-    # ---- 3. fused selection on [2, Q] -------------------------------------
-    S = rand(N_CLUSTERS, Q)
+
+def fused_selection(torch, card):
+    """Phase 3: fused selection on a gaussian [2, Q] matrix:
+    ``select_topk_rows`` (the ``block_select`` pipeline, which must answer
+    it without the exact fallback) against the exact stable sort, timed
+    beside ``torch.topk`` as the library yardstick; then ``block_select``
+    alone at the main path's per-row shape and threshold, timed."""
+    Q, k_ul = card.Q, card.k
+    S = card.rand(N_CLUSTERS, Q)
     with use_registry(MetricsRegistry()) as reg:
         vals, idx = fops.select_topk_rows(S, k_ul)
         torch.cuda.synchronize()
@@ -3432,7 +3147,8 @@ def main(argv):
     cap_blk = fops.tile_capacity(Q, fops.candidate_capacity(Q, k_ul))
     th = fops._row_threshold(S, k_ul, bins=fops._BINS, sample=fops._SAMPLE,
                              margin=fops._MARGIN)
-    nb = -(-Q // BE)
+    no_th = torch.tensor([float("inf")], device=S.device)  # no finite entry clears it
+    nb = -(-Q // FK.BLOCK_ELEMS)
     row = S[0]
     got = FK.block_select(row, th[0:1], cap_blk, Q)
     torch.cuda.synchronize()
@@ -3445,59 +3161,51 @@ def main(argv):
     ms = cuda_ms(torch, lambda: FK.block_select(row, th[0:1], cap_blk, Q), 5)
     ms_none = cuda_ms(torch, lambda: FK.block_select(row, no_th, cap_blk, Q), 5)
     plain_ms = cuda_ms(torch, lambda: FK.block_select_plain(row, th[0:1], cap_blk, Q), 1)
-    timed("block_select", "olmo-1b", ms, plain_ms,
-          4 * Q + 8 * nb * cap_blk + 4 * nb + 4, 2 * Q, err, Q, cap_blk=cap_blk,
-          no_candidates_ms=ms_none)
-    del S, row, th, no_th
-    free(torch)
+    record(card, "block_select", "olmo-1b", ms, plain_ms,
+           4 * Q + 8 * nb * cap_blk + 4 * nb + 4, 2 * Q, err, Q, cap_blk=cap_blk,
+           no_candidates_ms=ms_none)
 
-    # ---- 2d. the exact top-k's radix select ---------------------------------
-    radix_select_checks(torch, kernels, Q, k_ul, Qf, kf, dev)
-    free(torch)
 
-    # ---- 2e. SGDM's update ----------------------------------------------------
-    sgdm_checks(torch, kernels, dev)
-    free(torch)
-
-    # ---- 4. the main path ---------------------------------------------------
-    counters = {"block_select": FK.block_select, "update_max": DK.update_max,
-                "tail_hist": DK.tail_hist, "apply_mask": DK.apply_mask,
-                "bitpack": BK.bitpack}
-    attn_counters = attn_kernels()
-    path_kernels = {"fused": ("block_select",), "pallas": ("update_max", "tail_hist")}
-    by_path = {}  # path -> {kernel: launches in that path's run}
+# ---- phase 4: the main path ---------------------------------------------------
+def main_path(torch, card):
+    """Phase 4: full-width olmo-1b through ``repro_torch.launch.train`` at
+    ``MAIN_ARGV`` (``--full --tiers 2x2:H=2 --sync sparse --batch-per-mu 4
+    --seq 128``, 4 steps, 2 syncs), once with ``--omega-impl fused`` and
+    once with ``--omega-impl pallas``; each run's launch counts: the Ω
+    route's kernels once a row a sync, the attention kernels' (with remat,
+    two forwards and one backward a layer a cluster a step, plus the eval's
+    forward), SGDM's (one a leaf a cluster a step, every leaf counted on the
+    kernel route), and every exact row on the radix select's kernels; the
+    rows identical after each sync; the fused run says how many of its
+    selections the ``block_select`` candidates answered and how many the
+    exact fallback answered."""
+    cfg = olmo_config()
+    leaves = tree_leaves(init_model(None, cfg, device="meta"))
+    n_leaves, n_sent = len(leaves), sum(1 for x in leaves if x.numel())
+    counted = {**sync_kernels(), **attn_kernels(), "radix_select": RS.radix_select,
+               "sgdm": SK.sgdm_update}
     syncs = STEPS // PERIOD
     for impl in ("fused", "pallas"):
         identical = []
 
         def on_sync(i, state, seconds):
-            identical.append(all(
-                torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
-                for n in range(1, P.shape[0])))
+            identical.append(rows_identical(torch, state))
 
         free(torch)
         torch.cuda.reset_peak_memory_stats()
-        for fn in (*counters.values(), *attn_counters.values(), RS.radix_select,
-                   SK.sgdm_update):
-            fn.launches = 0
+        since = LaunchCount(counted)
         args = train.parse_args(MAIN_ARGV + ["--omega-impl", impl])
         with use_registry(MetricsRegistry()) as reg:
-            if profile_dir is not None:
-                out = profiled(torch, lambda: train.run(args, on_sync=on_sync),
-                               profile_dir / f"profile_{impl}.txt")
-            else:
-                out = train.run(args, on_sync=on_sync)
+            out = train.run(args, on_sync=on_sync)
             torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in {**counters, **attn_counters}.items()}
+        launches = since.read()
         # every exact row on the card takes the radix select's kernels
-        launches["radix_select"] = RS.radix_select.launches
         exact = reg.counter("sparsify.exact_topk_rows")
         if (exact.value(route="plain"), exact.value(route="kernel")) != (
                 0, launches["radix_select"]):
             raise AssertionError(f"{impl}: exact rows {exact.series}, radix_select "
                                  f"launched {launches['radix_select']} times")
         # every leaf's update takes SGDM's kernel: one launch a leaf a cluster a step
-        launches["sgdm"] = SK.sgdm_update.launches
         sgdm = reg.counter("optim.sgdm_leaves")
         if ((sgdm.value(route="kernel"), sgdm.value(route="plain"), launches["sgdm"])
                 != (n_leaves * N_CLUSTERS * STEPS, 0, n_sent * N_CLUSTERS * STEPS)):
@@ -3511,7 +3219,6 @@ def main(argv):
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "tiers": MAIN_ARGV[2], "steps": STEPS, "syncs": syncs,
               "losses": out["hist"], "eval_loss": out["eval_loss"],
-              "steady_s_per_step": out["timing"]["steady_s_per_step"],
               "first_step_s": out["timing"]["compile_s"],
               "sync_ms": [1e3 * s for s in out["sync_s"]],
               "max_memory_allocated_gb": peak / 1e9, "launches": launches,
@@ -3519,7 +3226,7 @@ def main(argv):
                                    "exact_fallback": fallbacks},
               "rows_identical_after_sync": identical})
         want = (N_CLUSTERS + 1) * syncs
-        for name in path_kernels[impl]:
+        for name in IMPL_KERNELS[impl]:
             if launches[name] != want:
                 raise AssertionError(f"{impl}: {name} launched {launches[name]} "
                                      f"times, want {want}")
@@ -3527,7 +3234,7 @@ def main(argv):
         if {k: launches[k] for k in want_attn} != want_attn:
             raise AssertionError(f"{impl}: attention launches {launches}, "
                                  f"want {want_attn}")
-        by_path[f"olmo-1b {impl}"] = launches
+        card.by_path[f"olmo-1b {impl}"] = launches
         if not (len(identical) == syncs and all(identical)):
             raise AssertionError(f"{impl}: cluster rows differ after a sync")
         if not (math.isfinite(out["eval_loss"])
@@ -3544,75 +3251,93 @@ def main(argv):
                   f"(share {fallbacks / calls:.2f})", flush=True)
         del out
 
-    # ---- 5. the paper-exact path --------------------------------------------
+
+# ---- phase 5: the paper-exact path --------------------------------------------
+def faithful_run(torch, card, impl):
+    """One of phase 5's runs of full-width ResNet-18 under ``FaithfulHFL``
+    with ``impl`` Ω, and its checks. -> the pallas run's SBS/MBS buffers
+    after step 7, the state before its second sync (phase 6 reads them);
+    the fused run keeps none."""
     hfl_f = PAPER.hfl  # 7 clusters x 4 MUs, H = 4, the paper's φ, β and σ
     K_f, N_f, period = hfl_f.total_mus, hfl_f.num_clusters, hfl_f.tiers[1].period
     f_syncs = F_STEPS // period
     want_f = (K_f + N_f) * F_STEPS + (2 * N_f + 1) * f_syncs
     f_kernels = {"pallas": ("update_max", "tail_hist", "apply_mask"),
                  "fused": ("block_select",)}
-    sync_state = {}  # the pallas run's SBS/MBS buffers before its second sync
-    for impl in ("pallas", "fused"):
-        min_zeros = []
+    sync_state, min_zeros = {}, []
 
-        def on_step(t, sim, metrics):
-            min_zeros.append(min(int((sim.state[b] == 0).sum(dim=1).min())
-                                 for b in ("u", "v")))
-            if impl == "pallas" and t == F_STEPS - 2:
-                sync_state.update({b: sim.state[b].clone() for b in
-                                   ("w_tilde_n", "eps_n", "w_ref", "e")})
+    def on_step(t, sim, metrics):
+        min_zeros.append(min(int((sim.state[b] == 0).sum(dim=1).min())
+                             for b in ("u", "v")))
+        if impl == "pallas" and t == F_STEPS - 2:
+            sync_state.update({b: sim.state[b].clone() for b in
+                               ("w_tilde_n", "eps_n", "w_ref", "e")})
 
-        free(torch)
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        run = lambda: pa.run(f"faithful {impl}", hfl_f, F_STEPS,
-                             batch_per_mu=PAPER.batch_per_mu, lr=F_LR, seed=0,
-                             width=PAPER.width, device="cuda",
-                             omega_impl=impl, on_step=on_step)
-        # the selections' outcomes in call order: the fused.select.* spans
-        with use_tracer(SpanTracer()) as tracer:
-            if profile_dir is not None:
-                out = profiled(torch, run, profile_dir / f"profile_faithful_{impl}.txt")
-            else:
-                out = run()
-            torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters.items()}
-        by_path[f"faithful {impl}"] = launches
-        outcomes = [e["name"] == "fused.select.candidates"
-                    for e in sorted(tracer.events, key=lambda e: e["ts"])
-                    if e["name"].startswith("fused.select.")]
-        if len(outcomes) != (want_f if impl == "fused" else 0):
-            raise AssertionError(f"faithful {impl}: {len(outcomes)} fused "
-                                 f"selections, want {want_f} with fused only")
-        hops = split_by_hop(outcomes, F_STEPS, K_f, N_f, period)
-        emit({"phase": "faithful_path", "impl": impl, "arch": "resnet18-cifar",
-              "width": PAPER.width, "Q": Qf, "clusters": N_f,
-              "mus_per_cluster": hfl_f.mus_per_cluster, "period": period,
-              "batch_per_mu": PAPER.batch_per_mu, "lr": F_LR,
-              "steps": F_STEPS, "syncs": f_syncs, "losses": out["losses"],
-              "top1": out["acc"], "steady_s_per_step": out["steady_s_per_step"],
-              "first_step_s": out["first_step_s"], "step_s": out["step_s"],
-              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "launches": launches, "min_zeros_per_row": min_zeros, "k": kf,
-              "fused_selections_by_hop": hops if impl == "fused" else None})
-        for name in f_kernels[impl]:
-            if launches[name] != want_f:
-                raise AssertionError(f"faithful {impl}: {name} launched "
-                                     f"{launches[name]} times, want {want_f}")
-        if len(min_zeros) != F_STEPS or min(min_zeros) < kf:
-            raise AssertionError(f"faithful {impl}: a u/v row holds fewer than "
-                                 f"k = {kf} zeros after a step: {min_zeros}")
-        if not (math.isfinite(out["acc"]) and all(math.isfinite(l) for l in out["losses"])):
-            raise AssertionError(f"faithful {impl}: non-finite loss or accuracy")
-        if impl == "fused":
-            print("faithful fused: selections answered from the block_select "
-                  "candidates / by the exact fallback, by hop: " + ", ".join(
-                      f"{h} {c['kernel_pipeline']}/{c['exact_fallback']}"
-                      for h, c in hops.items()), flush=True)
-        del out
-    # the non-IID twin (launch.noniid_hfl): the three splits of the example at
-    # full width, 7 x 4, H = 4, its batch of 16 per MU, one sync each
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    since = LaunchCount(sync_kernels())
+    # the selections' outcomes in call order: the fused.select.* spans
+    with use_tracer(SpanTracer()) as tracer:
+        out = pa.run(f"faithful {impl}", hfl_f, F_STEPS,
+                     batch_per_mu=PAPER.batch_per_mu, lr=F_LR, seed=0,
+                     width=PAPER.width, device="cuda", omega_impl=impl,
+                     on_step=on_step)
+        torch.cuda.synchronize()
+    launches = since.read()
+    card.by_path[f"faithful {impl}"] = launches
+    outcomes = [e["name"] == "fused.select.candidates"
+                for e in sorted(tracer.events, key=lambda e: e["ts"])
+                if e["name"].startswith("fused.select.")]
+    if len(outcomes) != (want_f if impl == "fused" else 0):
+        raise AssertionError(f"faithful {impl}: {len(outcomes)} fused "
+                             f"selections, want {want_f} with fused only")
+    hops = split_by_hop(outcomes, F_STEPS, K_f, N_f, period)
+    emit({"phase": "faithful_path", "impl": impl, "arch": "resnet18-cifar",
+          "width": PAPER.width, "Q": card.Qf, "clusters": N_f,
+          "mus_per_cluster": hfl_f.mus_per_cluster, "period": period,
+          "batch_per_mu": PAPER.batch_per_mu, "lr": F_LR,
+          "steps": F_STEPS, "syncs": f_syncs, "losses": out["losses"],
+          "top1": out["acc"], "first_step_s": out["first_step_s"],
+          "step_s": out["step_s"],
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "min_zeros_per_row": min_zeros, "k": card.kf,
+          "fused_selections_by_hop": hops if impl == "fused" else None})
+    for name in f_kernels[impl]:
+        if launches[name] != want_f:
+            raise AssertionError(f"faithful {impl}: {name} launched "
+                                 f"{launches[name]} times, want {want_f}")
+    if len(min_zeros) != F_STEPS or min(min_zeros) < card.kf:
+        raise AssertionError(f"faithful {impl}: a u/v row holds fewer than "
+                             f"k = {card.kf} zeros after a step: {min_zeros}")
+    if not (math.isfinite(out["acc"]) and all(math.isfinite(l) for l in out["losses"])):
+        raise AssertionError(f"faithful {impl}: non-finite loss or accuracy")
+    if impl == "fused":
+        print("faithful fused: selections answered from the block_select "
+              "candidates / by the exact fallback, by hop: " + ", ".join(
+                  f"{h} {c['kernel_pipeline']}/{c['exact_fallback']}"
+                  for h, c in hops.items()), flush=True)
+    return sync_state
+
+
+def faithful_path(torch, card):
+    """Phase 5: the paper-exact path, full-width ResNet-18 under
+    ``FaithfulHFL`` through ``repro_torch.launch.paper_accuracy.run`` at the
+    paper's geometry (7 clusters x 4 MUs, H = 4, φ = (0.99, 0.9, 0.9, 0.9),
+    β_s = 0.5, β_m = 0.2, σ = 0.9), batch 64 per MU, lr 0.05, 8 steps (2
+    syncs), once with ``--omega-impl pallas`` and once with ``fused``
+    (``faithful_run``): every Ω row is one launch, (K + N)·S + (2N +
+    1)·⌊S/H⌋ = 310 of each kernel of the impl; after every step every row
+    of u and v must hold >= k zeros; the fused run says which selections
+    the ``block_select`` candidates answered, by hop. Then the non-IID twin
+    (``launch.noniid_hfl.run``: the iid, label-sorted and dirichlet(0.3)
+    splits of the example at full width, batch 16 per MU, H = 4,
+    ``pallas``) for ``NONIID_STEPS`` = 4 steps each, one sync each,
+    3·((K + N)·4 + 2N + 1) = 465 launches of each DGC kernel, the same u/v
+    zeros check. -> the pallas run's state before its second sync."""
+    sync_state = faithful_run(torch, card, "pallas")
+    faithful_run(torch, card, "fused")
+    hfl_f, kf = PAPER.hfl, card.kf
+    K_f, N_f, period = hfl_f.total_mus, hfl_f.num_clusters, hfl_f.tiers[1].period
     min_zeros = {}
 
     def on_split_step(split, t, sim, metrics):
@@ -3621,24 +3346,23 @@ def main(argv):
 
     free(torch)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    since = LaunchCount(sync_kernels())
     nout = noniid_hfl.run(NONIID_STEPS, period=period, width=PAPER.width,
                           device="cuda", omega_impl="pallas", on_step=on_split_step)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    by_path["faithful non-IID pallas"] = launches
+    launches = since.read()
+    card.by_path["faithful non-IID pallas"] = launches
     want_n = len(nout) * ((K_f + N_f) * NONIID_STEPS
                           + (2 * N_f + 1) * (NONIID_STEPS // period))
     emit({"phase": "faithful_noniid", "impl": "pallas", "arch": "resnet18-cifar",
-          "width": PAPER.width, "Q": Qf, "clusters": N_f, "period": period,
+          "width": PAPER.width, "Q": card.Qf, "clusters": N_f, "period": period,
           "steps": NONIID_STEPS, "splits": {
               name: {"losses": r["losses"], "top1": r["acc"], "step_s": r["step_s"],
                      "min_zeros_per_row": min_zeros[name]}
               for name, r in nout.items()},
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches": launches, "launches_want": want_n, "k": kf})
-    for name in f_kernels["pallas"]:
+    for name in ("update_max", "tail_hist", "apply_mask"):
         if launches[name] != want_n:
             raise AssertionError(f"non-IID: {name} launched {launches[name]} "
                                  f"times, want {want_n}")
@@ -3648,9 +3372,37 @@ def main(argv):
         if len(min_zeros[name]) != NONIID_STEPS or min(min_zeros[name]) < kf:
             raise AssertionError(f"non-IID {name}: a u/v row holds fewer than "
                                  f"k = {kf} zeros after a step")
-    del nout
+    return sync_state
 
-    # ---- 6. the comm path on the faithful path's sync state ---------------
+
+# ---- phase 6: the comm path on the paper path's sync state ---------------------
+def comm_path(torch, card, sync_state=None):
+    """Phase 6: the comm path on ``sync_state``, phase 5's pallas run's
+    state before its second sync (called alone, it runs that run itself),
+    as an ``HFLState`` over the ResNet-18 tree at 7 clusters (φ = 0.9 up and
+    down, β_s = 0.5, β_m = 0.2): ``comm.make_sync_probe`` for every
+    registered codec with ``pallas`` and ``fused`` Ω; the pallas probe's 7
+    uplink and 1 downlink payloads bit-equal to the same probe on a CPU
+    copy, the state unchanged, ``make_sync`` on a copy of the state sending
+    each impl's probed payloads (w_ref and eps bit for bit), device bit
+    counts equal to the host ``measure_bits``, the bitmap streams through
+    ``bitpack`` equal to numpy's and decoding back, ``bitmap_payload`` of
+    the downlink card = CPU, a ``PayloadLedger`` per codec beside the
+    analytic 32·(1 - φ), ``bitpack`` launched once per kernel-path encode
+    and ``bitmap_payload`` call, the ``launch.comm_bits`` entry point on the
+    card, and the async per-cluster sync (``sim.engine.
+    make_async_sync_step``, sparse downlink, cluster 3) with ``pallas`` and
+    ``fused`` Ω on the card against a CPU copy: w_ref, eps[n], e_dl[n], row
+    n and the device bit counts equal, two launches of each kernel of the
+    impl; and the tiered cascade (``core.hfl.HierSyncStep``) on a random
+    depth-3 state of that Q, 2 edges x 3 clusters, with ``pallas`` and
+    ``hist``: the hier probe's bits of a top-2 boundary, that cascade, a
+    unit sync and a root push, every row card = CPU bit for bit, 27
+    launches each."""
+    if sync_state is None:
+        sync_state = faithful_run(torch, card, "pallas")
+    hfl_f, Qf, counters = PAPER.hfl, card.Qf, sync_kernels()
+    K_f, N_f = hfl_f.total_mus, hfl_f.num_clusters
     t6 = time.perf_counter()
     free(torch)
     spec_f = fl.spec_of(init_resnet18(None, width=PAPER.width, device="meta")[0])
@@ -3669,8 +3421,7 @@ def main(argv):
                 for impl in ("pallas", "fused")}
     names = list(cod.CODECS)
     cheap = [n for n in names if n.startswith(("dense", "bitmap"))]
-    for fn in counters.values():
-        fn.launches = 0
+    since = LaunchCount(counters)
     probe_bits, payloads = {}, {}
     for impl, cfg_i in comm_cfg.items():
         probe_bits[impl] = {}
@@ -3680,7 +3431,7 @@ def main(argv):
         ups, down = acc.make_sync_probe(cfg_i, "bitmap").payloads(state_d)
         payloads[impl] = ups + [down]
     torch.cuda.synchronize()
-    probe_launches = {k: fn.launches for k, fn in counters.items()}
+    probe_launches = since.read()
     for b, t in rows_d.items():  # the probes left the state as it was
         if not torch.equal(t.view(torch.int32), sync_state[b].view(torch.int32)):
             raise AssertionError(f"comm: the sync probe changed {b}")
@@ -3736,7 +3487,7 @@ def main(argv):
         raise AssertionError("comm: bitmap_payload differs between card and CPU")
     del d
     torch.cuda.synchronize()
-    comm_launches = {k: fn.launches for k, fn in counters.items()}
+    comm_launches = since.read()
     if comm_launches["bitpack"] != kernel_encodes + 1:
         raise AssertionError(f"comm: bitpack launched {comm_launches['bitpack']} "
                              f"times, want {kernel_encodes + 1}")
@@ -3747,7 +3498,7 @@ def main(argv):
             if probe_launches[name] != want_probe:
                 raise AssertionError(f"comm {impl}: {name} launched "
                                      f"{probe_launches[name]} times, want {want_probe}")
-    by_path["comm (ResNet-18 sync state)"] = comm_launches
+    card.by_path["comm (ResNet-18 sync state)"] = comm_launches
     # what make_sync then sends on a copy of the state is what each probe
     # measured: w_ref' = w_ref + d, eps'_n = drift_n - sent_n, bit for bit
     for impl, cfg_i in comm_cfg.items():
@@ -3803,9 +3554,8 @@ def main(argv):
     # the async per-cluster sync (sparse downlink) on that state: the card
     # against a CPU copy, bit for bit, for both kernel routes
     n_a, w_a = 3, E.async_weight(2, N_f)
-    edl0 = 0.01 * rand(N_f, Qf)  # a downlink error with every entry set
-    for fn in counters.values():
-        fn.launches = 0
+    edl0 = 0.01 * card.rand(N_f, Qf)  # a downlink error with every entry set
+    since = LaunchCount(counters)
     async_check = {}
     for impl, cfg_i in comm_cfg.items():
         got = {}
@@ -3828,14 +3578,14 @@ def main(argv):
         async_check[impl] = {"bits_sbs_ul_mbs_dl": got["cuda"][1]}
         del got
     torch.cuda.synchronize()
-    async_launches = {k: fn.launches for k, fn in counters.items()}
+    async_launches = since.read()
     want_a = {k: 0 for k in counters}
     for impl in comm_cfg:  # one uplink and one downlink Ω per sync
-        for k in path_kernels[impl]:
+        for k in IMPL_KERNELS[impl]:
             want_a[k] = 2
     if async_launches != want_a:
         raise AssertionError(f"async sync: launches {async_launches}, want {want_a}")
-    by_path["comm async sync (ResNet-18 sync state)"] = async_launches
+    card.by_path["comm async sync (ResNet-18 sync state)"] = async_launches
     del edl0
     emit({"check": "async_sync", "Q": Qf, "clusters": N_f, "cluster": n_a,
           "weight": w_a, "dl_sparse": True, "card_equals_cpu_bit_patterns": True,
@@ -3857,8 +3607,7 @@ def main(argv):
         cfg_h = HFLConfig(tiers=parse_tiers_spec("2x3x2:H=2,2"), omega_impl=impl)
         got = {}
         for where in ("cuda", "cpu"):
-            for fn in counters.values():
-                fn.launches = 0
+            since = LaunchCount(counters)
             r = {k: v.clone().to(where) for k, v in hier_rows.items()}
             st = HFLState(params=fl.unpack_stacked(r["params"], spec_f), opt={},
                           w_ref=fl.unpack(r["w_ref"], spec_f),
@@ -3877,8 +3626,8 @@ def main(argv):
                 snaps.append([v.to("cpu", copy=True) for v in r.values()])
             if where == "cuda":
                 torch.cuda.synchronize()
-                for k, fn in counters.items():
-                    hier_launches[k] += fn.launches
+                for k, n in since.read().items():
+                    hier_launches[k] += n
             got[where] = (bits, snaps)
             del r, st, bufs
         if got["cuda"][0] != got["cpu"][0]:
@@ -3891,11 +3640,11 @@ def main(argv):
         hier_check[impl] = {"probe_bits_ul_dl": got["cuda"][0]}
         del got
     want_h = {k: 0 for k in counters}
-    for k in path_kernels["pallas"]:  # probe 11 + cascade 11 + unit 4 + push 1
+    for k in IMPL_KERNELS["pallas"]:  # probe 11 + cascade 11 + unit 4 + push 1
         want_h[k] = 27
     if hier_launches != want_h:
         raise AssertionError(f"hier check: launches {hier_launches}, want {want_h}")
-    by_path["hier sync check (ResNet-18 Q, 2x3x2)"] = hier_launches
+    card.by_path["hier sync check (ResNet-18 Q, 2x3x2)"] = hier_launches
     emit({"check": "hier_sync", "Q": Qf, "tiers": "2x3x2:H=2,2",
           "calls": ["probe top 2", "cascade top 2", "unit_sync u=1", "push t=2 a=1"],
           "card_equals_cpu_bit_patterns": True, "launches": hier_launches,
@@ -3912,391 +3661,428 @@ def main(argv):
                         "winner_0.99": cb["best_winner_by_phi"]["0.99"]["codec"],
                         "seconds": time.perf_counter() - t_cb},
           "seconds": time.perf_counter() - t6})
-    del payloads, state_d, rows_d, sync_state
-    free(torch)
 
-    # ---- 7. the simulator's path -------------------------------------------
-    from repro_torch.obs import torchprof
 
-    def alloc_retries():
-        """The caching allocator's retries so far: each freed the cached
-        blocks and allocated again (a stall near the card's capacity)."""
-        return torchprof.device_memory_stats().get("num_alloc_retries", 0)
+# ---- phase 7: the simulator's path --------------------------------------------
+# (scenario or, for the async root, tiers; Ω impl; extra train CLI flags), at
+# full olmo-1b width; paper-fig3 first (phase 8a reruns it)
+SIM_RUNS = (("paper-fig3", "pallas", ["--layers", str(FIG3_LAYERS),
+                                      "--payload-accounting", "measured",
+                                      "--codec", "delta-varint"]),
+            # the seeds make the checks bite (the fleet is numpy, the same on
+            # every machine): seed 3 drops a straggler in both rounds, seed 8
+            # has a cluster sit out each round, seed 25 re-associates an MU
+            # (and moves its shard) within the run
+            ("stragglers", "fused", MAIN_ARGV[1:3] + ["--sim-seed", "3"]),
+            ("dropout", "pallas", MAIN_ARGV[1:3] + ["--sim-seed", "8"]),
+            ("async", "pallas", MAIN_ARGV[1:3] + ["--payload-accounting", "measured",
+                                                  "--codec", "delta-varint"]),
+            ("trace-replay", "fused", MAIN_ARGV[1:3] + ["--sim-seed", str(TRACE_SEED)]),
+            ("scale-1m", "pallas", ["--layers", str(SCALE_LAYERS)]),
+            # the depth-3 trees (2 edges x 2 SBSs x 4 MUs) at their depth cut:
+            # 4 clusters' state and the tier buffers
+            ("hier-3tier", "pallas", ["--layers", str(HIER_LAYERS),
+                                      "--payload-accounting", "measured",
+                                      "--codec", "delta-varint", "--trace-viz",
+                                      str(OBS_DIR / "hier-3tier.json"),
+                                      "--metrics-out", str(OBS_DIR / "hier-3tier.jsonl")]),
+            ("hier-deadline", "pallas", ["--layers", str(HIER_LAYERS),
+                                         "--sim-seed", str(HIER_DEADLINE_SEED)]),
+            (ASYNC_ROOT, "pallas", ["--layers", str(HIER_LAYERS)]))
 
-    # three scenario runs through the train CLI's build_engine + SimEngine.run
-    # at full olmo-1b width; paper-fig3's 7 x 4 clusters at a depth cut (the
-    # state of 7 full-depth clusters does not fit the card)
-    from repro_torch.sim.scenarios import apply_hfl_overrides, get_scenario
 
-    t7 = time.perf_counter()
+def alloc_retries():
+    """The caching allocator's retries so far: each freed the cached blocks
+    and allocated again (a stall near the card's capacity)."""
+    return torchprof.device_memory_stats().get("num_alloc_retries", 0)
+
+
+def check_async_root(card, name, args, hfl_s, out, launches, peak, sat_out, events):
+    """The async-root tree through run_hfl (the unit scheduler without a
+    radio): every unit round a within-unit tier-1 sync (G uplinks and
+    one downlink Ω), every tiers[2].period rounds a root push (one Ω)."""
+    n_s, H_s = hfl_s.num_clusters, hfl_s.tiers[1].period
+    U = hfl_s.agg_count(1)
+    G, rounds = n_s // U, STEPS // H_s
+    cfg = olmo_config()
+    syncs = [e for e in events if e["kind"] == "unit_sync"]
+    pushes = [e for e in events if e["kind"] == "push"]
+    want = dict.fromkeys(launches, 0)
+    for k in IMPL_KERNELS[args.omega_impl]:
+        want[k] = len(syncs) * (G + 1) + len(pushes)
+    emit({"phase": "sim_path", "scenario": None, "tiers": name,
+          "impl": args.omega_impl, "discipline": "async root (unit scheduler)",
+          "arch": cfg.name, "layers": args.layers, "d_model": cfg.d_model,
+          "clusters": n_s, "units": U, "mus_per_cluster": hfl_s.mus_per_cluster,
+          "steps": STEPS, "losses": out["hist"], "eval_loss": out["eval_loss"],
+          "first_unit_round_s": out["timing"]["compile_s"],
+          "sync_ms": [1e3 * x for x in out["sync_s"]],
+          "max_memory_allocated_gb": peak / 1e9, "events": events,
+          "sat_out_by_step": sat_out, "launches": launches,
+          "launches_want": want, "card": card.smi})
+    if launches != want or want["update_max"] + want["block_select"] != 14:
+        raise AssertionError(f"sim {name}: launches {launches}, want {want}")
+    if not (len(syncs) == U * rounds and len(pushes) == U * rounds
+            // hfl_s.tiers[2].period and all(e["rows_ok"] for e in events)):
+        raise AssertionError(f"sim {name}: unit events {events}")
+    if not all(0 < e["weight"] <= 1 / hfl_s.tiers[2].fanout for e in pushes):
+        raise AssertionError(f"sim {name}: push weights {pushes}")
+    # every train call trains one unit; the other unit's rows sit out
+    if not (len(sat_out) == U * rounds * H_s
+            and all(len(o) == n_s - G for o in sat_out)):
+        raise AssertionError(f"sim {name}: sat-out {sat_out}")
+    if not (math.isfinite(out["eval_loss"])
+            and all(math.isfinite(l) for l in out["hist"])):
+        raise AssertionError(f"sim {name}: non-finite loss")
+    if peak / 1e9 >= PEAK_LIMIT_GB:
+        raise AssertionError(f"sim {name}: peak {peak / 1e9:.2f} GB")
+
+
+def sim_run(torch, card, name, impl, extra):
+    """One of phase 7's runs (a ``SIM_RUNS`` entry) through the train CLI,
+    with its checks. -> a scenario run's argv, losses, virtual clock,
+    launches, peak and allocator retries (None for the async root)."""
     OBS_DIR.mkdir(parents=True, exist_ok=True)
-    two = ["--tiers", f"{N_CLUSTERS}x2:H={PERIOD}"]
-    p7 = {}  # scenario -> its argv, losses, wall clock, launches, s/step
-    sim_runs = (("paper-fig3", "pallas", ["--layers", str(FIG3_LAYERS),
-                                          "--payload-accounting", "measured",
-                                          "--codec", "delta-varint"]),
-                # the seeds make the checks bite (the fleet is numpy, the
-                # same on every machine): seed 3 drops a straggler in both
-                # rounds, seed 8 has a cluster sit out each round, seed 25
-                # re-associates an MU (and moves its shard) within the run
-                ("stragglers", "fused", two + ["--sim-seed", "3"]),
-                ("dropout", "pallas", two + ["--sim-seed", "8"]),
-                ("async", "pallas", two + ["--payload-accounting", "measured",
-                                           "--codec", "delta-varint"]),
-                ("trace-replay", "fused", two + ["--sim-seed", str(TRACE_SEED)]),
-                ("scale-1m", "pallas", ["--layers", str(SCALE_LAYERS)]),
-                # the depth-3 trees (2 edges x 2 SBSs x 4 MUs) at paper-fig3's
-                # depth cut: 4 clusters' state and the tier buffers
-                ("hier-3tier", "pallas", ["--layers", str(HIER_LAYERS),
-                                          "--payload-accounting", "measured",
-                                          "--codec", "delta-varint", "--trace-viz",
-                                          str(OBS_DIR / "hier-3tier.json"),
-                                          "--metrics-out",
-                                          str(OBS_DIR / "hier-3tier.jsonl")]),
-                ("hier-deadline", "pallas", ["--layers", str(HIER_LAYERS),
-                                             "--sim-seed", str(HIER_DEADLINE_SEED)]),
-                (ASYNC_ROOT, "pallas", ["--layers", str(HIER_LAYERS)]))
+    cfg, counters = olmo_config(), sync_kernels()
     as_int = lambda x: x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    scenario = name != ASYNC_ROOT  # the async root runs without a scenario
+    argv = ((["--full", "--scenario", name] if scenario
+             else ["--full", "--tiers", name])
+            + ["--omega-impl", impl, "--batch-per-mu", "4", "--seq", "128",
+               "--steps", str(STEPS), "--log-every", "1", "--device", "cuda"]
+            + extra)
+    args = train.parse_args(argv)
+    hfl_s = HFLConfig(tiers=parse_tiers_spec(args.tiers or "4x2:H=4"))
+    if scenario:
+        scn = get_scenario(name)
+        hfl_s = apply_hfl_overrides(scn, hfl_s)
+    n_s, H_s = hfl_s.num_clusters, hfl_s.tiers[1].period
+    hier = hfl_s.depth > 2
+    asyn = not hier and scn.sim.discipline == "async"
+    measured = args.payload_accounting == "measured"
+    identical, sat_out, events, masked, last = [], [], [], [], {}
+    tops, unit_events = [], []
 
-    def check_async_root(name, args, hfl_s, out, launches, peak, sat_out, events):
-        """The async-root tree through run_hfl (the unit scheduler without a
-        radio): every unit round a within-unit tier-1 sync (G uplinks and
-        one downlink Ω), every tiers[2].period rounds a root push (one Ω)."""
-        n_s, H_s = hfl_s.num_clusters, hfl_s.tiers[1].period
-        U = hfl_s.agg_count(1)
-        G, rounds = n_s // U, STEPS // H_s
-        syncs = [e for e in events if e["kind"] == "unit_sync"]
-        pushes = [e for e in events if e["kind"] == "push"]
-        want = {k: 0 for k in counters}
-        for k in path_kernels[args.omega_impl]:
-            want[k] = len(syncs) * (G + 1) + len(pushes)
-        emit({"phase": "sim_path", "scenario": None, "tiers": name,
-              "impl": args.omega_impl, "discipline": "async root (unit scheduler)",
-              "arch": cfg.name, "layers": args.layers, "d_model": cfg.d_model,
-              "clusters": n_s, "units": U, "mus_per_cluster": hfl_s.mus_per_cluster,
-              "steps": STEPS, "losses": out["hist"], "eval_loss": out["eval_loss"],
-              "steady_s_per_unit_round": out["timing"]["steady_s_per_step"],
-              "first_unit_round_s": out["timing"]["compile_s"],
-              "sync_ms": [1e3 * x for x in out["sync_s"]],
-              "max_memory_allocated_gb": peak / 1e9, "events": events,
-              "sat_out_by_step": sat_out, "launches": launches,
-              "launches_want": want, "card": smi})
-        if launches != want or want["update_max"] + want["block_select"] != 14:
-            raise AssertionError(f"sim {name}: launches {launches}, want {want}")
-        if not (len(syncs) == U * rounds and len(pushes) == U * rounds
-                // hfl_s.tiers[2].period and all(e["rows_ok"] for e in events)):
-            raise AssertionError(f"sim {name}: unit events {events}")
-        if not all(0 < e["weight"] <= 1 / hfl_s.tiers[2].fanout for e in pushes):
-            raise AssertionError(f"sim {name}: push weights {pushes}")
-        # every train call trains one unit; the other unit's rows sit out
-        if not (len(sat_out) == U * rounds * H_s
-                and all(len(o) == n_s - G for o in sat_out)):
-            raise AssertionError(f"sim {name}: sat-out {sat_out}")
-        if not (math.isfinite(out["eval_loss"])
-                and all(math.isfinite(l) for l in out["hist"])):
-            raise AssertionError(f"sim {name}: non-finite loss")
-        if peak / 1e9 >= PEAK_LIMIT_GB:
-            raise AssertionError(f"sim {name}: peak {peak / 1e9:.2f} GB")
-
-    for name, impl, extra in sim_runs:
-        scenario = name != ASYNC_ROOT  # the async root runs without a scenario
-        argv = ((["--full", "--scenario", name] if scenario
-                 else ["--full", "--tiers", name])
-                + ["--omega-impl", impl, "--batch-per-mu", "4", "--seq", "128",
-                   "--steps", str(STEPS), "--log-every", "1", "--device", "cuda"]
-                + extra)
-        args = train.parse_args(argv)
-        hfl_s = HFLConfig(tiers=parse_tiers_spec(args.tiers or "4x2:H=4"))
-        if scenario:
-            scn = get_scenario(name)
-            hfl_s = apply_hfl_overrides(scn, hfl_s)
-        n_s, H_s = hfl_s.num_clusters, hfl_s.tiers[1].period
-        hier = hfl_s.depth > 2
-        asyn = not hier and scn.sim.discipline == "async"
-        measured = args.payload_accounting == "measured"
-        identical, sat_out, events, step_s, last = [], [], [], [], {}
-        tops, unit_events = [], []
-
-        def on_sync(i, state, seconds, event=None):
-            if event is None:  # lockstep/deadline: every row is the consensus
-                identical.append(all(
-                    torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
-                    for n in range(1, P.shape[0])))
-                return
-            if event.get("kind") == "cascade":
-                # rows identical under each aggregator of the top boundary
-                # that fired, and the tier-1 aggregators' rows differ unless
-                # the root fired
-                W = H._subtree_width(hfl_s.tiers, 0, event["top"])
-                leaves = tree_leaves(state.params)
-                tops.append({"top": event["top"], "seconds": seconds,
-                             "rows_identical_under_top": all(
-                                 torch.equal(P[n], P[(n // W) * W])
-                                 for P in leaves for n in range(n_s)),
-                             "edges_differ": any(
-                                 not torch.equal(P[0], P[n_s - 1]) for P in leaves)})
-                return
-            if event.get("kind") in ("unit_sync", "push"):
-                # after a root push the pushing unit's rows hold the fresh
-                # root reference (one cast); a unit sync leaves its rows equal
-                G = n_s // hfl_s.agg_count(1)
-                rows = range(event["unit"] * G, (event["unit"] + 1) * G)
-                leaves = tree_leaves(state.params)
-                if event["kind"] == "push":
-                    ok = all(torch.equal(as_int(P[n]), as_int(R.to(P.dtype)))
-                             for P, R in zip(leaves, tree_leaves(state.w_ref))
-                             for n in rows)
-                else:
-                    ok = all(torch.equal(P[n], P[rows[0]]) for P in leaves
-                             for n in rows)
-                unit_events.append({k: event.get(k) for k in (
-                    "kind", "unit", "tier", "agg", "round", "staleness", "weight",
-                    "seconds")} | {"rows_ok": ok})
-                return
-            # async: the active row is w_ref (dense downlink), or its value
-            # after the event's last train step plus the received payload
-            n = event["cluster"]
-            if last["n"] != n:
-                raise AssertionError(f"sim {name}: event of cluster {n} after "
-                                     f"a train step of cluster {last['n']}")
+    def on_sync(i, state, seconds, event=None):
+        if event is None:  # lockstep/deadline: every row is the consensus
+            identical.append(rows_identical(torch, state))
+            return
+        if event.get("kind") == "cascade":
+            # rows identical under each aggregator of the top boundary
+            # that fired, and the tier-1 aggregators' rows differ unless
+            # the root fired
+            W = H._subtree_width(hfl_s.tiers, 0, event["top"])
             leaves = tree_leaves(state.params)
-            if event["downlink"] is None:
-                want = [R.to(P.dtype) for P, R in
-                        zip(leaves, tree_leaves(state.w_ref))]
+            tops.append({"top": event["top"], "seconds": seconds,
+                         "rows_identical_under_top": all(
+                             torch.equal(P[n], P[(n // W) * W])
+                             for P in leaves for n in range(n_s)),
+                         "edges_differ": any(
+                             not torch.equal(P[0], P[n_s - 1]) for P in leaves)})
+            return
+        if event.get("kind") in ("unit_sync", "push"):
+            # after a root push the pushing unit's rows hold the fresh
+            # root reference (one cast); a unit sync leaves its rows equal
+            G = n_s // hfl_s.agg_count(1)
+            rows = range(event["unit"] * G, (event["unit"] + 1) * G)
+            leaves = tree_leaves(state.params)
+            if event["kind"] == "push":
+                ok = all(torch.equal(as_int(P[n]), as_int(R.to(P.dtype)))
+                         for P, R in zip(leaves, tree_leaves(state.w_ref))
+                         for n in rows)
             else:
-                dvals, didx = event["downlink"]
-                idx = didx.long()
-                order = torch.argsort(idx)
-                sidx = idx[order]
-                spec_s = fl.spec_of(state.w_ref)
-                bounds = torch.searchsorted(sidx, torch.tensor(
-                    spec_s.offsets + (spec_s.total,), device=dev)).tolist()
-                want = []
-                for i, old in enumerate(last["row"]):
-                    w = old.clone().view(-1)
-                    a, b = bounds[i], bounds[i + 1]
-                    loc = sidx[a:b] - spec_s.offsets[i]
-                    w[loc] = (w[loc].float() + dvals[order[a:b]]).to(w.dtype)
-                    want.append(w.view(old.shape))
-            if not all(torch.equal(as_int(P[n]), as_int(w))
-                       for P, w in zip(leaves, want)):
-                raise AssertionError(f"sim {name}: row {n} after its sync is "
-                                     "not what the downlink sent")
-            events.append({k: event[k] for k in (
-                "cluster", "round", "staleness", "weight", "seconds",
-                "bits_sbs_ul", "bits_mbs_dl")})
-
-        def unchanged(before, after, what):
-            if not all(torch.equal(as_int(a), as_int(b))
-                       for a, b in zip(after, before)):
-                raise AssertionError(f"sim {name}: {what}")
-
-        def wrap(step_fn):  # lockstep/deadline: sat-out rows stay as they were
-            def checked(state, batch, keep=None):
-                out = [] if keep is None else [n for n in range(len(keep))
-                                                if not keep[n]]
-                leaves = tree_leaves(state.params) + tree_leaves(state.opt["m"])
-                before = [P[n].clone() for n in out for P in leaves]
-                state, loss = step_fn(state, batch, keep=keep)
-                unchanged(before, [P[n] for n in out for P in leaves],
-                          "a sat-out cluster's rows changed in a train step")
-                sat_out.append(out)
-                return state, loss
-            return checked
-
-        def wrap_masked(step_fn):  # async: only the event's cluster trains
-            def checked(state, batch_n, n):
-                leaves = tree_leaves(state.params) + tree_leaves(state.opt["m"])
-                others = [m for m in range(n_s) if m != n]
-                before = [P[m].clone() for m in others for P in leaves]
-                last.clear()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, loss = step_fn(state, batch_n, n)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-                unchanged(before, [P[m] for m in others for P in leaves],
-                          "another cluster's rows changed in a masked step")
-                del before
-                last.update(n=n, row=[P[n].clone() for P in tree_leaves(state.params)])
-                return state, loss
-            return checked
-
-        free(torch)
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        retries0 = alloc_retries()
-        out = train.run(args, on_sync=on_sync, wrap_train_step=wrap,
-                        wrap_masked_step=wrap_masked)
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
-        retries = alloc_retries() - retries0
-        last.clear()
-        by_path[f"sim {name} {impl}"] = launches
-        if not scenario:
-            check_async_root(name, args, hfl_s, out, launches, peak, sat_out,
-                             unit_events)
-            del out
-            continue
-        trace, eng = out["trace"], out["engine"]
-        meta = trace.meta
-        p7[name] = {"argv": argv, "hist": out["hist"], "wallclock": trace.wallclock,
-                    "launches": launches, "steady": out["timing"]["steady_s_per_step"],
-                    "peak_gb": peak / 1e9, "alloc_retries": retries}
-        syncs_rows = [r for r in trace.rows if r["kind"] == "sync"]
-        # every sync selects its rows' Ω once: N uplinks + 1 downlink under
-        # lockstep (and the measured probe again before it), 1 + 1 per async
-        # event with the sparse downlink, 1 with the dense one; a tiered
-        # boundary one per child and one per aggregator of every tier that
-        # fired (and the probe again under measured accounting)
-        if asyn:
-            n_omega = (1 + int(hfl_s.async_dl_sparse)) * len(syncs_rows)
-        elif hier:
-            n_omega = sum(hfl_s.agg_count(t - 1) + hfl_s.agg_count(t)
-                          for r in syncs_rows for t in range(1, r["tier"] + 1))
-            n_omega *= 2 if measured else 1
+                ok = all(torch.equal(P[n], P[rows[0]]) for P in leaves
+                         for n in rows)
+            unit_events.append({k: event.get(k) for k in (
+                "kind", "unit", "tier", "agg", "round", "staleness", "weight",
+                "seconds")} | {"rows_ok": ok})
+            return
+        # async: the active row is w_ref (dense downlink), or its value
+        # after the event's last train step plus the received payload
+        n = event["cluster"]
+        if last["n"] != n:
+            raise AssertionError(f"sim {name}: event of cluster {n} after "
+                                 f"a train step of cluster {last['n']}")
+        leaves = tree_leaves(state.params)
+        if event["downlink"] is None:
+            want = [R.to(P.dtype) for P, R in
+                    zip(leaves, tree_leaves(state.w_ref))]
         else:
-            n_omega = (n_s + 1) * (2 if measured else 1) * len(syncs_rows)
-        want = {k: 0 for k in counters}
-        for k in path_kernels[impl]:
-            want[k] = n_omega
-        line = {"phase": "sim_path", "scenario": name, "impl": impl,
-                "discipline": meta["discipline"], "accounting": meta["payload_accounting"],
-                "residency": meta["residency"], "arch": cfg.name,
-                "layers": args.layers or cfg.num_layers, "d_model": cfg.d_model,
-                "clusters": n_s, "mus_per_cluster": hfl_s.mus_per_cluster,
-                "fleet_mus": eng.fleet.K, "steps": STEPS, "syncs": len(syncs_rows),
-                "sim_seed": args.sim_seed, "losses": out["hist"],
-                "eval_loss": out["eval_loss"],
-                "steady_s_per_step": out["timing"]["steady_s_per_step"],
-                "first_step_s": out["timing"]["compile_s"],
-                "sync_ms": [1e3 * x for x in out["sync_s"]],
-                "max_memory_allocated_gb": peak / 1e9, "alloc_retries": retries,
-                "virtual_wallclock_s": trace.wallclock,
-                "dropped_by_row": [r["dropped"] for r in trace.rows],
-                "launches": launches, "launches_want": want, "card": smi}
-        if asyn:
-            # one on_step per event: the per-step times are the masked
-            # steps' own (device waited on before and after each)
-            line.update(steady_s_per_step=(sum(step_s[1:]) / (len(step_s) - 1)
-                                           if len(step_s) > 1 else None),
-                        first_step_s=step_s[0] if step_s else None,
-                        first_event_s=out["timing"]["compile_s"],
-                        steady_s_per_event=out["timing"]["steady_s_per_step"],
-                        masked_steps=len(step_s),
-                        kinds=[r["kind"] for r in trace.rows], events=events)
-        else:
-            line.update(deadline_s=[r["deadline_s"] for r in syncs_rows],
-                        sat_out_by_step=sat_out, rows_identical_after_sync=identical)
-        if hier:
-            line.update(sync_tiers=[r["tier"] for r in syncs_rows], cascades=tops)
-        links = ("sbs_ul", "mbs_dl") + (("t2_ul", "t2_dl") if hier else ())
-        if measured:
-            line["ledger"] = {k: meta[k] for k in (
-                "codec", "payload_size", "bits_per_param_mean",
-                *(f"{x}_{l}" for l in links for x in ("bits", "events")))}
-        if eng.residency is not None:
-            # shards conserved; MUs whose cluster changed since the start
+            dvals, didx = event["downlink"]
+            idx = didx.long()
+            order = torch.argsort(idx)
+            sidx = idx[order]
+            spec_s = fl.spec_of(state.w_ref)
+            bounds = torch.searchsorted(sidx, torch.tensor(
+                spec_s.offsets + (spec_s.total,), device=didx.device)).tolist()
+            want = []
+            for i, old in enumerate(last["row"]):
+                w = old.clone().view(-1)
+                a, b = bounds[i], bounds[i + 1]
+                loc = sidx[a:b] - spec_s.offsets[i]
+                w[loc] = (w[loc].float() + dvals[order[a:b]]).to(w.dtype)
+                want.append(w.view(old.shape))
+        if not all(torch.equal(as_int(P[n]), as_int(w))
+                   for P, w in zip(leaves, want)):
+            raise AssertionError(f"sim {name}: row {n} after its sync is "
+                                 "not what the downlink sent")
+        events.append({k: event[k] for k in (
+            "cluster", "round", "staleness", "weight", "seconds",
+            "bits_sbs_ul", "bits_mbs_dl")})
+
+    def unchanged(before, after, what):
+        if not all(torch.equal(as_int(a), as_int(b))
+                   for a, b in zip(after, before)):
+            raise AssertionError(f"sim {name}: {what}")
+
+    def wrap(step_fn):  # lockstep/deadline: sat-out rows stay as they were
+        def checked(state, batch, keep=None):
+            out = [] if keep is None else [n for n in range(len(keep))
+                                            if not keep[n]]
+            leaves = tree_leaves(state.params) + tree_leaves(state.opt["m"])
+            before = [P[n].clone() for n in out for P in leaves]
+            state, loss = step_fn(state, batch, keep=keep)
+            unchanged(before, [P[n] for n in out for P in leaves],
+                      "a sat-out cluster's rows changed in a train step")
+            sat_out.append(out)
+            return state, loss
+        return checked
+
+    def wrap_masked(step_fn):  # async: only the event's cluster trains
+        def checked(state, batch_n, n):
+            leaves = tree_leaves(state.params) + tree_leaves(state.opt["m"])
+            others = [m for m in range(n_s) if m != n]
+            before = [P[m].clone() for m in others for P in leaves]
+            last.clear()
+            state, loss = step_fn(state, batch_n, n)
+            masked.append(n)
+            unchanged(before, [P[m] for m in others for P in leaves],
+                      "another cluster's rows changed in a masked step")
+            del before
+            last.update(n=n, row=[P[n].clone() for P in tree_leaves(state.params)])
+            return state, loss
+        return checked
+
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    since = LaunchCount(counters)
+    retries0 = alloc_retries()
+    out = train.run(args, on_sync=on_sync, wrap_train_step=wrap,
+                    wrap_masked_step=wrap_masked)
+    torch.cuda.synchronize()
+    launches = since.read()
+    peak = torch.cuda.max_memory_allocated()
+    retries = alloc_retries() - retries0
+    last.clear()
+    card.by_path[f"sim {name} {impl}"] = launches
+    if not scenario:
+        check_async_root(card, name, args, hfl_s, out, launches, peak, sat_out,
+                         unit_events)
+        return None
+    trace, eng = out["trace"], out["engine"]
+    meta = trace.meta
+    rec = {"argv": argv, "hist": out["hist"], "wallclock": trace.wallclock,
+           "launches": launches, "peak_gb": peak / 1e9, "alloc_retries": retries}
+    syncs_rows = [r for r in trace.rows if r["kind"] == "sync"]
+    # every sync selects its rows' Ω once: N uplinks + 1 downlink under
+    # lockstep (and the measured probe again before it), 1 + 1 per async
+    # event with the sparse downlink, 1 with the dense one; a tiered
+    # boundary one per child and one per aggregator of every tier that
+    # fired (and the probe again under measured accounting)
+    if asyn:
+        n_omega = (1 + int(hfl_s.async_dl_sparse)) * len(syncs_rows)
+    elif hier:
+        n_omega = sum(hfl_s.agg_count(t - 1) + hfl_s.agg_count(t)
+                      for r in syncs_rows for t in range(1, r["tier"] + 1))
+        n_omega *= 2 if measured else 1
+    else:
+        n_omega = (n_s + 1) * (2 if measured else 1) * len(syncs_rows)
+    want = {k: 0 for k in counters}
+    for k in IMPL_KERNELS[impl]:
+        want[k] = n_omega
+    line = {"phase": "sim_path", "scenario": name, "impl": impl,
+            "discipline": meta["discipline"], "accounting": meta["payload_accounting"],
+            "residency": meta["residency"], "arch": cfg.name,
+            "layers": args.layers or cfg.num_layers, "d_model": cfg.d_model,
+            "clusters": n_s, "mus_per_cluster": hfl_s.mus_per_cluster,
+            "fleet_mus": eng.fleet.K, "steps": STEPS, "syncs": len(syncs_rows),
+            "sim_seed": args.sim_seed, "losses": out["hist"],
+            "eval_loss": out["eval_loss"],
+            "first_step_s": out["timing"]["compile_s"],
+            "sync_ms": [1e3 * x for x in out["sync_s"]],
+            "max_memory_allocated_gb": peak / 1e9, "alloc_retries": retries,
+            "virtual_wallclock_s": trace.wallclock,
+            "dropped_by_row": [r["dropped"] for r in trace.rows],
+            "launches": launches, "launches_want": want, "card": card.smi}
+    if asyn:
+        # one on_step per event: its first is the first event's
+        line.update(first_event_s=line.pop("first_step_s"), masked_steps=len(masked),
+                    kinds=[r["kind"] for r in trace.rows], events=events)
+    else:
+        line.update(deadline_s=[r["deadline_s"] for r in syncs_rows],
+                    sat_out_by_step=sat_out, rows_identical_after_sync=identical)
+    if hier:
+        line.update(sync_tiers=[r["tier"] for r in syncs_rows], cascades=tops)
+    links = ("sbs_ul", "mbs_dl") + (("t2_ul", "t2_dl") if hier else ())
+    if measured:
+        line["ledger"] = {k: meta[k] for k in (
+            "codec", "payload_size", "bits_per_param_mean",
+            *(f"{x}_{l}" for l in links for x in ("bits", "events")))}
+    if eng.residency is not None:
+        # shards conserved; MUs whose cluster changed since the start
+        eng.residency.check_conservation()
+        line["reassociated"] = int((eng.residency.home != eng.fleet.cid).sum())
+        if name == "scale-1m":
+            # the run is shorter than the 600 virtual s between
+            # repricings: move the fleet one interval on, as a longer
+            # run would, and hold the 1.05M shards to conservation
+            t_mv = time.perf_counter()
+            eng._advance_fleet(eng.sim.reprice_interval_s)
             eng.residency.check_conservation()
-            line["reassociated"] = int((eng.residency.home != eng.fleet.cid).sum())
-            if name == "scale-1m":
-                # the run is shorter than the 600 virtual s between
-                # repricings: move the fleet one interval on, as a longer
-                # run would, and hold the 1.05M shards to conservation
-                t_mv = time.perf_counter()
-                eng._advance_fleet(eng.sim.reprice_interval_s)
-                eng.residency.check_conservation()
-                line["reassociated_after_one_interval"] = int(
-                    (eng.residency.home != eng.fleet.cid).sum())
-                line["reprice_interval_host_s"] = time.perf_counter() - t_mv
-        emit(line)
-        if launches != want:
-            raise AssertionError(f"sim {name}: launches {launches}, want {want}")
-        if peak / 1e9 >= PEAK_LIMIT_GB:
-            raise AssertionError(f"sim {name}: peak {peak / 1e9:.2f} GB")
-        if not (math.isfinite(out["eval_loss"])
-                and all(math.isfinite(l) for l in out["hist"])):
-            raise AssertionError(f"sim {name}: non-finite loss")
-        if asyn:
-            rounds = STEPS // H_s
-            if not (len(events) == len(syncs_rows) > 0
-                    and len(trace.rows) == n_s * rounds
-                    and len(step_s) == H_s * len(syncs_rows)):
-                raise AssertionError(f"sim {name}: {len(events)} events, "
-                                     f"{len(step_s)} masked steps, rows {line['kinds']}")
-            if name == "async" and len(syncs_rows) != n_s * rounds:
-                raise AssertionError(f"sim async: {len(syncs_rows)} syncs")
-            if measured:  # the ledger's fronthaul = the events' own counts
-                if not (meta["bits_sbs_ul"] == sum(e["bits_sbs_ul"] for e in events)
-                        and meta["bits_mbs_dl"] == sum(e["bits_mbs_dl"] for e in events)
-                        and meta["events_sbs_ul"] == meta["events_mbs_dl"]
-                        == len(events)):
-                    raise AssertionError(f"sim {name}: ledger and event counts differ")
-        elif hier:
-            if not ([t["top"] for t in tops] == line["sync_tiers"] == [1, 2]
-                    and all(t["rows_identical_under_top"] for t in tops)
-                    and [t["edges_differ"] for t in tops] == [True, False]):
-                raise AssertionError(f"sim {name}: tiered rows {tops}")
-            if len(sat_out) != STEPS:
-                raise AssertionError(f"sim {name}: sat-out steps {sat_out}")
-            if name == "hier-deadline" and not any(r["dropped"] for r in trace.rows):
-                raise AssertionError("sim hier-deadline: the deadline dropped no MU")
-            if measured:  # every boundary's ledger links = the probe's counts
-                for l in links:
-                    if meta[f"bits_{l}"] != sum(r.get(f"bits_{l}", 0.0)
-                                                for r in syncs_rows):
-                        raise AssertionError(f"sim {name}: ledger {l} != probe")
-                if not (meta["events_sbs_ul"] == n_s * len(syncs_rows)
-                        and meta["events_t2_ul"] == hfl_s.agg_count(1)
-                        and meta["events_t2_dl"] == 1):
-                    raise AssertionError(f"sim {name}: ledger events {line['ledger']}")
-        else:
-            if not (len(identical) == len(syncs_rows) == STEPS // H_s
-                    and all(identical)):
-                raise AssertionError(f"sim {name}: cluster rows differ after a sync")
-            if len(sat_out) != STEPS or (name == "dropout" and not any(sat_out)):
-                raise AssertionError(f"sim {name}: sat-out steps {sat_out}")
-            if name == "stragglers" and not any(r["dropped"] for r in trace.rows):
-                raise AssertionError("sim stragglers: the deadline dropped no MU")
-            if measured:  # the ledger's fronthaul = the probe's host counts
-                if not (meta["bits_sbs_ul"] == sum(r["bits_sbs_ul"] for r in syncs_rows)
-                        and meta["bits_mbs_dl"] == sum(r["bits_mbs_dl"] for r in syncs_rows)
-                        and meta["events_sbs_ul"] == n_s * len(syncs_rows)
-                        and meta["events_mbs_dl"] == len(syncs_rows)):
-                    raise AssertionError(f"sim {name}: ledger and probe counts differ")
-        if args.trace_viz:  # the obs outputs of the run (hier-3tier)
-            emit({"phase": "sim_path_obs", "scenario": name,
-                  **check_obs_outputs(name, args, out, eng)})
-        if name == "trace-replay" and not line["reassociated"]:
-            raise AssertionError("sim trace-replay: no MU re-associated")
-        if name == "scale-1m" and not line["reassociated_after_one_interval"]:
-            raise AssertionError("sim scale-1m: no MU re-associated in an interval")
-        del out, trace, eng
+            line["reassociated_after_one_interval"] = int(
+                (eng.residency.home != eng.fleet.cid).sum())
+            line["reprice_interval_host_s"] = time.perf_counter() - t_mv
+    emit(line)
+    if launches != want:
+        raise AssertionError(f"sim {name}: launches {launches}, want {want}")
+    if peak / 1e9 >= PEAK_LIMIT_GB:
+        raise AssertionError(f"sim {name}: peak {peak / 1e9:.2f} GB")
+    if not (math.isfinite(out["eval_loss"])
+            and all(math.isfinite(l) for l in out["hist"])):
+        raise AssertionError(f"sim {name}: non-finite loss")
+    if asyn:
+        rounds = STEPS // H_s
+        if not (len(events) == len(syncs_rows) > 0
+                and len(trace.rows) == n_s * rounds
+                and len(masked) == H_s * len(syncs_rows)):
+            raise AssertionError(f"sim {name}: {len(events)} events, "
+                                 f"{len(masked)} masked steps, rows {line['kinds']}")
+        if name == "async" and len(syncs_rows) != n_s * rounds:
+            raise AssertionError(f"sim async: {len(syncs_rows)} syncs")
+        if measured:  # the ledger's fronthaul = the events' own counts
+            if not (meta["bits_sbs_ul"] == sum(e["bits_sbs_ul"] for e in events)
+                    and meta["bits_mbs_dl"] == sum(e["bits_mbs_dl"] for e in events)
+                    and meta["events_sbs_ul"] == meta["events_mbs_dl"]
+                    == len(events)):
+                raise AssertionError(f"sim {name}: ledger and event counts differ")
+    elif hier:
+        if not ([t["top"] for t in tops] == line["sync_tiers"] == [1, 2]
+                and all(t["rows_identical_under_top"] for t in tops)
+                and [t["edges_differ"] for t in tops] == [True, False]):
+            raise AssertionError(f"sim {name}: tiered rows {tops}")
+        if len(sat_out) != STEPS:
+            raise AssertionError(f"sim {name}: sat-out steps {sat_out}")
+        if name == "hier-deadline" and not any(r["dropped"] for r in trace.rows):
+            raise AssertionError("sim hier-deadline: the deadline dropped no MU")
+        if measured:  # every boundary's ledger links = the probe's counts
+            for l in links:
+                if meta[f"bits_{l}"] != sum(r.get(f"bits_{l}", 0.0)
+                                            for r in syncs_rows):
+                    raise AssertionError(f"sim {name}: ledger {l} != probe")
+            if not (meta["events_sbs_ul"] == n_s * len(syncs_rows)
+                    and meta["events_t2_ul"] == hfl_s.agg_count(1)
+                    and meta["events_t2_dl"] == 1):
+                raise AssertionError(f"sim {name}: ledger events {line['ledger']}")
+    else:
+        if not (len(identical) == len(syncs_rows) == STEPS // H_s
+                and all(identical)):
+            raise AssertionError(f"sim {name}: cluster rows differ after a sync")
+        if len(sat_out) != STEPS or (name == "dropout" and not any(sat_out)):
+            raise AssertionError(f"sim {name}: sat-out steps {sat_out}")
+        if name == "stragglers" and not any(r["dropped"] for r in trace.rows):
+            raise AssertionError("sim stragglers: the deadline dropped no MU")
+        if measured:  # the ledger's fronthaul = the probe's host counts
+            if not (meta["bits_sbs_ul"] == sum(r["bits_sbs_ul"] for r in syncs_rows)
+                    and meta["bits_mbs_dl"] == sum(r["bits_mbs_dl"] for r in syncs_rows)
+                    and meta["events_sbs_ul"] == n_s * len(syncs_rows)
+                    and meta["events_mbs_dl"] == len(syncs_rows)):
+                raise AssertionError(f"sim {name}: ledger and probe counts differ")
+    if args.trace_viz:  # the obs outputs of the run (hier-3tier)
+        emit({"phase": "sim_path_obs", "scenario": name,
+              **check_obs_outputs(name, args, out, eng)})
+    if name == "trace-replay" and not line["reassociated"]:
+        raise AssertionError("sim trace-replay: no MU re-associated")
+    if name == "scale-1m" and not line["reassociated_after_one_interval"]:
+        raise AssertionError("sim scale-1m: no MU re-associated in an interval")
+    return rec
+
+
+def sim_path(torch, card):
+    """Phase 7: the simulator's path, nine runs (``SIM_RUNS``) through
+    ``repro_torch.launch.train`` (``sim.scenarios.build_engine`` and
+    ``SimEngine.run``, or ``core.schedule.run_hfl``) at full olmo-1b width,
+    4 steps: ``paper-fig3`` (lockstep, 7 x 4 MUs, H = 2, ``FIG3_LAYERS``
+    layers, ``pallas`` Ω, measured accounting with ``delta-varint``),
+    ``stragglers`` (deadline, ``2x2:H=2``, full depth, ``fused`` Ω: the
+    deadline drops a straggler), ``dropout`` (lockstep with participation
+    resampling, ``pallas`` Ω: a cluster sits out each round), ``async``
+    (``pallas`` Ω, sparse downlink, measured ``delta-varint``),
+    ``trace-replay`` (async over a replayed trace with ``move`` residency,
+    ``fused`` Ω: an MU re-associates within the run) and ``scale-1m``
+    (async, the live 1.05M-MU fleet behind 7 x 4 slots, ``pallas`` Ω,
+    ``SCALE_LAYERS`` layers), then the depth-3 trees (2 edges x 2 SBSs x 4
+    MUs, ``HIER_LAYERS`` layers, ``pallas`` Ω): ``hier-3tier`` (measured
+    ``delta-varint``, the hier probe; tops 1 and 2, 30 launches each),
+    ``hier-deadline`` (an MU is dropped; 15 launches) and the async-root
+    tree ``--tiers 2x2x4:H=2,2:async`` without a scenario (the unit
+    scheduler through ``run_hfl``: 4 unit syncs and 2 root pushes, 14
+    launches), checking the rows identical under each aggregator of the
+    top that fired, each pushing unit's rows equal to the new root
+    reference, the ledger's per-boundary links equal to the probe's counts,
+    and every peak under ``PEAK_LIMIT_GB``. The lockstep/deadline runs check
+    the cluster rows identical after every sync and a sat-out cluster's
+    params and momentum rows bitwise unchanged by a train step; the async
+    runs check every masked step leaves the other clusters' params and
+    momentum rows bitwise unchanged and, after each event's sync, the active
+    row equal to its value before plus the received payload; all check
+    finite losses and every kernel's launches against the count the trace
+    implies, paper-fig3 and async the ledger's fronthaul bits against the
+    probe's (the events') counts, and the residency runs the shards'
+    conservation and a re-association (``scale-1m`` after moving its fleet
+    one 600 s repricing interval on, since the run is shorter); each prints
+    sync ms, peak memory, the virtual wall-clock and the drops (and, async,
+    the staleness and weight) per trace row. ``hier-3tier`` also writes its
+    ``--trace-viz`` export and ``--metrics-out`` run log (into
+    ``OBS_DIR``), which must validate, pass ``tools/trace_summary.py
+    --check`` (span bits = the tracer's books = the ledger's on every tier
+    boundary's links) and agree with the registry's launch and ``comm.bits``
+    totals. -> paper-fig3's record (phase 8a runs it again)."""
+    t7 = time.perf_counter()
+    records = {run[0]: sim_run(torch, card, *run) for run in SIM_RUNS}
     emit({"phase": "sim_path_done", "seconds": time.perf_counter() - t7})
     free(torch)
+    return records["paper-fig3"]
 
-    # ---- 8. the obs path ----------------------------------------------------
-    from repro_torch.obs.health.monitor import HealthMonitor
 
+# ---- phase 8: the obs path -----------------------------------------------------
+def obs_path(torch, card, fig3=None):
+    """Phase 8: the obs path (``repro_torch.obs`` through the train CLI's
+    flags). (a) phase 7's paper-fig3 run again (``fig3``, its record; called
+    alone, it makes it itself) with ``--obs-health --trace-viz --metrics-out
+    --obs-heartbeat 1``: its losses bit for bit, virtual wall clock and
+    ``update_max``/``tail_hist`` launches equal to phase 7's, the health
+    ingest's host seconds per sync, no anomaly, the health counter tracks in
+    the trace, the outputs checked as hier-3tier's; (b) ``async``
+    (``2x2:H=2``, ``OBS_LAYERS`` layers, measured ``delta-varint``) with
+    ``--obs-health --metrics-out``: per-cluster statistics finite, the
+    ``sim.staleness`` histogram per cluster, conservation exact, 2 launches
+    per event, the peak; (c) scenario-free ``2x2:H=2`` at ``OBS_LAYERS``
+    layers with ``--obs-hlo-cost --metrics-out``: the first train step's and
+    sync's flops, bytes and profiler launch counts, the train flops beside
+    6 · params · tokens, the losses equal to the same run without the
+    flag."""
+    counters = sync_kernels()
     t8 = time.perf_counter()
     obs_retries = [0]
 
-    def rows_identical(state):
-        return all(torch.equal(P[0], P[n]) for P in tree_leaves(state.params)
-                   for n in range(1, P.shape[0]))
-
     def obs_run(argv, monitor_method=None, on_sync=None):
-        """train.run(argv) on the card with the launch counts zeroed just
-        before and read just after -> (args, out, launches, peak bytes, host
-        seconds of each ``HealthMonitor.<monitor_method>`` call); the
-        allocator's retries (a full cache freed and allocated again) go to
-        ``obs_retries``."""
+        """train.run(argv) on the card -> (args, out, its launches, peak
+        bytes, host seconds of each ``HealthMonitor.<monitor_method>``
+        call); the allocator's retries (a full cache freed and allocated
+        again) go to ``obs_retries``."""
         free(torch)
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
+        since = LaunchCount(counters)
         obs_retries[:] = [alloc_retries()]
         args = train.parse_args(argv)
         if monitor_method is None:
@@ -4307,8 +4093,7 @@ def main(argv):
             ingest = mt.seconds
         torch.cuda.synchronize()
         obs_retries[:] = [alloc_retries() - obs_retries[0]]
-        return (args, out, {k: fn.launches for k, fn in counters.items()},
-                torch.cuda.max_memory_allocated(), ingest)
+        return args, out, since.read(), torch.cuda.max_memory_allocated(), ingest
 
     def finite_losses(what, out):
         if not (math.isfinite(out["eval_loss"])
@@ -4316,35 +4101,33 @@ def main(argv):
             raise AssertionError(f"obs {what}: non-finite loss")
 
     # 8a. paper-fig3 exactly as phase 7 ran it, with every telemetry flag on
-    p = p7["paper-fig3"]
+    if fig3 is None:
+        fig3 = sim_run(torch, card, *SIM_RUNS[0])
     identical = []
     args, out, launches, peak, ingest = obs_run(
-        p["argv"] + ["--obs-health", "--trace-viz", str(OBS_DIR / "paper-fig3.json"),
-                     "--metrics-out", str(OBS_DIR / "paper-fig3.jsonl"),
-                     "--obs-heartbeat", "1"],
+        fig3["argv"] + ["--obs-health", "--trace-viz", str(OBS_DIR / "paper-fig3.json"),
+                        "--metrics-out", str(OBS_DIR / "paper-fig3.jsonl"),
+                        "--obs-heartbeat", "1"],
         "ingest_sync_stats",
-        on_sync=lambda i, st, sec: identical.append(rows_identical(st)))
-    by_path["obs paper-fig3 pallas"] = launches
+        on_sync=lambda i, st, sec: identical.append(rows_identical(torch, st)))
+    card.by_path["obs paper-fig3 pallas"] = launches
     info = check_obs_outputs("paper-fig3", args, out, out["engine"])
     hs = out["telemetry"].health.summary()
-    steady = out["timing"]["steady_s_per_step"]
     emit({"phase": "obs_path", "run": "8a paper-fig3", "argv_added": [
               "--obs-health", "--trace-viz", "--metrics-out", "--obs-heartbeat 1"],
-          "losses": out["hist"], "losses_equal_phase7": out["hist"] == p["hist"],
+          "losses": out["hist"], "losses_equal_phase7": out["hist"] == fig3["hist"],
           "virtual_wallclock_s": out["trace"].wallclock,
-          "steady_s_per_step": steady, "steady_s_per_step_phase7": p["steady"],
-          "steady_ratio_on_off": steady / p["steady"],
-          "alloc_retries": obs_retries[0], "alloc_retries_phase7": p["alloc_retries"],
+          "alloc_retries": obs_retries[0], "alloc_retries_phase7": fig3["alloc_retries"],
           "health_ingest_s_per_sync": ingest, "health_summary": hs,
           "max_memory_allocated_gb": peak / 1e9, "launches": launches,
-          "rows_identical_after_sync": identical, "card": smi, **info})
-    if out["hist"] != p["hist"] or out["trace"].wallclock != p["wallclock"]:
+          "rows_identical_after_sync": identical, "card": card.smi, **info})
+    if out["hist"] != fig3["hist"] or out["trace"].wallclock != fig3["wallclock"]:
         raise AssertionError("obs paper-fig3: the losses or the virtual clock "
                              "differ from the same run without telemetry")
     for k in ("update_max", "tail_hist"):
-        if launches[k] != p["launches"][k]:
+        if launches[k] != fig3["launches"][k]:
             raise AssertionError(f"obs paper-fig3: {k} launched {launches[k]} "
-                                 f"times, {p['launches'][k]} without telemetry")
+                                 f"times, {fig3['launches'][k]} without telemetry")
     want_tracks = {"health.drift", "health.residual", "health.loss",
                    "health.omega_overlap"}
     if not (hs["anomalies"] == 0 and hs["signals"]
@@ -4366,7 +4149,7 @@ def main(argv):
              "--payload-accounting", "measured", "--codec", "delta-varint",
              "--obs-health", "--metrics-out", str(OBS_DIR / "async.jsonl")])
     args, out, launches, peak, ingest = obs_run(argv, "ingest_async_sync_stats")
-    by_path["obs async pallas"] = launches
+    card.by_path["obs async pallas"] = launches
     info = check_obs_outputs("async", args, out, out["engine"])
     snap = out["telemetry"].registry.snapshot()
     syncs_rows = [r for r in out["trace"].rows if r["kind"] == "sync"]
@@ -4377,12 +4160,11 @@ def main(argv):
     emit({"phase": "obs_path", "run": "8b async", "layers": OBS_LAYERS,
           "losses": out["hist"], "syncs": len(syncs_rows),
           "virtual_wallclock_s": out["trace"].wallclock,
-          "steady_s_per_event": out["timing"]["steady_s_per_step"],
           "health_ingest_s_per_sync": ingest, "health_stats": stats,
           "staleness_histogram": stale, "health_summary":
               out["telemetry"].health.summary(),
           "max_memory_allocated_gb": peak / 1e9, "launches": launches,
-          "card": smi, **info})
+          "card": card.smi, **info})
     clusters = {f"cluster=c{n}" for n in range(N_CLUSTERS)}
     if not (set(stats.get("health.drift", {})) == clusters
             and all(math.isfinite(v) for series in stats.values()
@@ -4404,15 +4186,14 @@ def main(argv):
     _, plain, _, _, _ = obs_run(argv)
     args, out, launches, peak, _ = obs_run(
         argv + ["--obs-hlo-cost", "--metrics-out", str(OBS_DIR / "hlo_cost.jsonl")])
-    by_path["obs hlo-cost pallas"] = launches
+    card.by_path["obs hlo-cost pallas"] = launches
     costs = {}
     for line in Path(args.metrics_out).read_text().splitlines():
         rec = json.loads(line)
         if rec["event"] == "hlo_cost":
             costs[rec["fn"]] = {k: rec[k] for k in (
                 "flops", "hbm_bytes", "collective_bytes", "launches")}
-    cfg6 = dataclasses.replace(cfg, num_layers=OBS_LAYERS)
-    n_params = fl.spec_of(init_model(None, cfg6, device="meta")).total
+    n_params = fl.spec_of(init_model(None, olmo_config(OBS_LAYERS), device="meta")).total
     tokens = N_CLUSTERS * 2 * 4 * 128  # clusters x MUs x batch x sequence
     analytic = 6.0 * n_params * tokens
     emit({"phase": "obs_path", "run": "8c hlo-cost", "layers": OBS_LAYERS,
@@ -4422,7 +4203,7 @@ def main(argv):
           / analytic, "losses": out["hist"],
           "losses_equal_without_flag": out["hist"] == plain["hist"],
           "max_memory_allocated_gb": peak / 1e9, "launches": launches,
-          "card": smi})
+          "card": card.smi})
     if set(costs) != {"train_step", "sync_step"} or not all(
             c["flops"] >= 0 and c["launches"] > 0 for c in costs.values()):
         raise AssertionError(f"obs hlo-cost: {costs}")
@@ -4435,81 +4216,111 @@ def main(argv):
     finite_losses("hlo-cost", out)
     del out, plain
     emit({"phase": "obs_path_done", "seconds": time.perf_counter() - t8})
-    free(torch)
 
-    # ---- 9. the model families ---------------------------------------------
-    model_families(torch, counters, by_path, smi)
 
-    # ---- 10. the sharded flat vector and the mesh syncs ---------------------
-    sharded_paths(torch, counters, by_path, smi)
+# ---- phase 11: the kernel summary ---------------------------------------------
+# every ported kernel: (its source, the reference code it stands for, the shape
+# of the path it came with: the summary's headline numbers)
+KERNEL_META = {
+    "block_select": ("src/repro_torch/csrc/fused_sync.cu",
+                     "src/repro/kernels/fused_sync/kernel.py:67", "olmo-1b"),
+    "update_max": ("src/repro_torch/csrc/dgc.cu",
+                   "src/repro/kernels/dgc/kernel.py:47", "olmo-1b"),
+    "tail_hist": ("src/repro_torch/csrc/dgc.cu",
+                  "src/repro/kernels/dgc/kernel.py:88", "olmo-1b"),
+    "apply_mask": ("src/repro_torch/csrc/dgc.cu",
+                   "src/repro/kernels/dgc/kernel.py:119", "resnet18"),
+    "bitpack": ("src/repro_torch/csrc/bitpack.cu",
+                "src/repro/kernels/bitpack/kernel.py:43", "resnet18"),
+    # not TPU kernels: the reference's plain-jnp flash_attention
+    "flash_attn_fwd": ("src/repro_torch/csrc/flash_attn.cu",
+                       "src/repro/models/attention.py:23", "olmo-1b train_4k"),
+    "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
+                       "src/repro/models/attention.py:23", "olmo-1b train_4k"),
+    # the reference's jnp decode_attention and mla_decode's latent einsums:
+    # the CUDA-core kernels, then the tensor-core ones
+    "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
+                    "src/repro/models/attention.py:85", "olmo-1b decode_32k"),
+    "mla_decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
+                        "src/repro/models/attention.py:252", "deepseek-v2 decode_32k"),
+    "decode_attn_tc": ("src/repro_torch/csrc/decode_attn_sm90.cu",
+                       "src/repro/models/attention.py:85", "granite-34b decode_32k"),
+    "mla_decode_attn_tc": ("src/repro_torch/csrc/decode_attn_sm90.cu",
+                           "src/repro/models/attention.py:252",
+                           "deepseek-v2 decode_32k"),
+    # no TPU kernel: the reference's lax.top_k (the exact fallback)
+    "radix_select": ("src/repro_torch/csrc/radix_select.cu",
+                     "src/repro/core/sparsify.py:pack_topk", "olmo-1b"),
+    # no TPU kernel: the reference's jnp SGDM under jit (XLA fuses it)
+    "sgdm": ("src/repro_torch/csrc/sgdm.cu", "src/repro/optim/sgd.py:SGDM", "olmo-1b"),
+}
 
-    # ---- 12. checkpoints and the dry-run (before the summary, which is last)
-    checkpoint_and_dryrun(torch, counters, by_path, smi)
 
-    # ---- 13. long context: train_4k's and prefill_32k's lengths -----------
-    long_context(torch, by_path, smi, kernels)
+def all_kernels():
+    """Every kernel wrapper of ``KERNEL_META`` by name."""
+    return {**sync_kernels(), **attn_kernels(), "radix_select": RS.radix_select,
+            "sgdm": SK.sgdm_update}
 
-    # ---- 14. decode at decode_32k's and long_500k's shapes ------------------
-    long_decode(torch, by_path, smi, kernels)
 
-    # ---- 11. kernel summary -------------------------------------------------
-    meta = {
-        "block_select": ("src/repro_torch/csrc/fused_sync.cu",
-                         "src/repro/kernels/fused_sync/kernel.py:67"),
-        "update_max": ("src/repro_torch/csrc/dgc.cu",
-                       "src/repro/kernels/dgc/kernel.py:47"),
-        "tail_hist": ("src/repro_torch/csrc/dgc.cu",
-                      "src/repro/kernels/dgc/kernel.py:88"),
-        "apply_mask": ("src/repro_torch/csrc/dgc.cu",
-                       "src/repro/kernels/dgc/kernel.py:119"),
-        "bitpack": ("src/repro_torch/csrc/bitpack.cu",
-                    "src/repro/kernels/bitpack/kernel.py:43"),
-        # not TPU kernels: the reference's plain-jnp flash_attention
-        "flash_attn_fwd": ("src/repro_torch/csrc/flash_attn.cu",
-                           "src/repro/models/attention.py:23"),
-        "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
-                           "src/repro/models/attention.py:23"),
-        # the reference's jnp decode_attention and mla_decode's latent
-        # einsums: the CUDA-core kernels, then the tensor-core ones
-        "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
-                        "src/repro/models/attention.py:85"),
-        "mla_decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
-                            "src/repro/models/attention.py:252"),
-        "decode_attn_tc": ("src/repro_torch/csrc/decode_attn_sm90.cu",
-                           "src/repro/models/attention.py:85"),
-        "mla_decode_attn_tc": ("src/repro_torch/csrc/decode_attn_sm90.cu",
-                               "src/repro/models/attention.py:252"),
-        # no TPU kernel: the reference's lax.top_k (the exact fallback)
-        "radix_select": ("src/repro_torch/csrc/radix_select.cu",
-                         "src/repro/core/sparsify.py:pack_topk"),
-        # no TPU kernel: the reference's jnp SGDM under jit (XLA fuses it)
-        "sgdm": ("src/repro_torch/csrc/sgdm.cu", "src/repro/optim/sgd.py:SGDM"),
-    }
-    # the headline numbers at the shape of the path each kernel came with;
-    # every shape timed under "shapes"
-    first_shape = {"block_select": "olmo-1b", "update_max": "olmo-1b",
-                   "tail_hist": "olmo-1b", "apply_mask": "resnet18",
-                   "bitpack": "resnet18", "flash_attn_fwd": "olmo-1b train_4k",
-                   "flash_attn_bwd": "olmo-1b train_4k",
-                   "decode_attn": "olmo-1b decode_32k",
-                   "mla_decode_attn": "deepseek-v2 decode_32k",
-                   "decode_attn_tc": "granite-34b decode_32k",
-                   "mla_decode_attn_tc": "deepseek-v2 decode_32k",
-                   "radix_select": "olmo-1b", "sgdm": "olmo-1b"}
+def kernel_summary(card, launched=None):
+    """Phase 11: one JSON line listing every ported kernel with its launches
+    on each path (and their sum), error, times and bound. In a whole run
+    every kernel must have launched on some path and been timed at its
+    first shape. For a phase run alone (``launched``: kernel -> its
+    launches in that phase) it lists only the kernels that phase launched,
+    with what it timed of them."""
     rows = []
-    for name, (source, replaces) in meta.items():
-        k = kernels[name][first_shape[name]]
-        per_path = {p: c[name] for p, c in by_path.items() if c.get(name)}
-        if not per_path:
-            raise AssertionError(f"{name} was launched on no path")
+    for name, (source, replaces, shape) in KERNEL_META.items():
+        per_path = {p: c[name] for p, c in card.by_path.items() if c.get(name)}
+        timed = card.kernels.get(name, {})
+        if launched is None:
+            if not per_path:
+                raise AssertionError(f"{name} was launched on no path")
+            k, launches = timed[shape], sum(per_path.values())
+        elif launched[name]:
+            k, launches = timed.get(shape, {}), launched[name]
+        else:
+            continue
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": sum(per_path.values()),
+                     "replaces": replaces, "launches": launches,
                      "launches_by_path": per_path,
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-                     "shape": first_shape[name], "shapes": kernels[name]})
+                     **{f: k.get(f) for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+                     "shape": shape, "shapes": timed})
     emit({"kernels": rows})
+
+
+def alone(torch, phase):
+    """Phase 1, then ``phase`` by itself, then the summary of the kernels it
+    launched (see the module's docstring)."""
+    card = setup(torch)
+    since = LaunchCount(all_kernels())
+    phase(torch, card)
+    kernel_summary(card, since.read())
+
+
+def main(argv):
+    if argv:
+        print("usage: python3 chip_smoke.py (no arguments; to run one phase, "
+              "call chip_smoke.alone as the module's docstring says)", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    card = setup(torch)
+    for phase in (kernel_checks, fused_selection, radix_select_checks, sgdm_checks,
+                  main_path):
+        phase(torch, card)
+        free(torch)
+    comm_path(torch, card, sync_state=faithful_path(torch, card))
+    obs_path(torch, card, fig3=sim_path(torch, card))
+    for phase in (model_families, sharded_paths, checkpoint_and_dryrun, long_context,
+                  long_decode):
+        phase(torch, card)
+    kernel_summary(card)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
